@@ -10,7 +10,10 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
   2. build:   compiles csrc/*.cu into build/kernels/ (ptxas report in
               chiprun_out/build.log)
   3. kernels: each hand-written kernel against its plain PyTorch version on
-              the card, at the serving path's shapes and at edge shapes
+              the card, at the serving and training paths' shapes and at
+              edge shapes: IN+act, the conv in its three padding modes, the
+              weight gradient, and the conv's and the norm's autograd
+              Functions against autograd of their plain versions
   4. slice:   the cyclevaegan generator at full width (256x256, base 64,
               latent 64, bf16, seeded random weights) serves requests at
               batch 1, 4 and 16 through run_inference; every generator
@@ -18,8 +21,19 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               kernel 2 times; the f32 and the bf16 forward on the card must
               agree with the port's plain CPU forward in the same dtype, on
               the same weights and noise
-  5. times:   kernel vs plain (CUDA events), request latency per batch size
-              (host clock, median), peak device memory, a profiler summary
+  5. train:   the full-width bf16 task takes three train_steps at batch 4;
+              each step must launch IN+act 46 times, the reflect conv 12, the
+              zero_same conv 14 and the weight gradient 18 times; losses
+              finite, no skipped update, every parameter moved; then one f32
+              train_step at batch 1 on the card against the port's CPU step
+              from the same weights and noise (metrics, spectral vectors,
+              parameters within one Adam step), and eval_step
+  6. times:   kernel vs plain (CUDA events), request latency per batch size
+              and training step time at batch 4 and 24 (host clock, median),
+              device busy time and idle share, peak device memory, profiler
+              summaries (a device time the profiler did not record in three
+              sessions is printed as not measured and left out of the
+              summary; the CUDA-event times are always taken)
 
 Any failed check raises, and the script exits non-zero without printing its
 last line, ``{"ok": true, "device": {...}}``. The line before it is the
@@ -41,13 +55,23 @@ from vae_cyclegan_tpu_torch import kernels
 from vae_cyclegan_tpu_torch.config import ModelConfig
 from vae_cyclegan_tpu_torch.inference import run_inference
 from vae_cyclegan_tpu_torch.models.tasks import create_task
+from vae_cyclegan_tpu_torch.models.tasks.cyclegan import GEN_PASSES
 from vae_cyclegan_tpu_torch.ops.instance_norm import (
     ORDERS,
     fused_reference,
     in_act_cuda,
+    instance_norm_act,
 )
 from vae_cyclegan_tpu_torch.ops.reflect_conv import reflect_conv
-from vae_cyclegan_tpu_torch.ops.starved_conv import reflect_conv_cuda
+from vae_cyclegan_tpu_torch.ops.starved_conv import (
+    dw_cuda,
+    dw_reference,
+    reflect_conv_cuda,
+    rotate,
+    starved_reflect_conv,
+    zero_conv,
+    zero_conv_cuda,
+)
 
 OUT_DIR = Path("chiprun_out")
 IMAGE, BASE, LATENT = 256, 64, 64
@@ -80,6 +104,29 @@ BF16_SLICE_SHARE_OF_F32_GAP = 1.0
 CONV_CASES = [(32, 40, 3, 16, 7), (32, 40, 16, 3, 7), (32, 32, 8, 16, 3),
               (32, 32, 16, 8, 3), (48, 40, 3, 8, 5), (40, 48, 4, 8, 3)]
 DEV = torch.device("cuda")
+# the training path's starved convs at 256x256: (name, cin, cout, k)
+TRAIN_CONVS = [("head", 3, BASE, 7), ("U4", BASE // 2, BASE, 3),
+               ("tail", BASE, 3, 7)]
+# launches per train_step, (in_act, reflect conv, zero_same conv, dw):
+# 6 generator passes x 5 IN sites + 8 discriminator passes x 2; U4 and tail
+# forward in each generator pass; dx of U4 and the tail in every pass and of
+# the head where its input is a generator output (F(Gx), G(Fy)); dw of the
+# three convs in every pass (tests/test_torch_train.py holds the same counts
+# against the JAX package's TPU trace)
+STEP_LAUNCHES = (46, 12, 14, 18)
+TRAIN_BATCHES = (PATH_BATCH, 24)   # 24: bench.py's default batch
+# the f32 step on the card against the port's CPU step: every metric within
+# rtol 2e-3 (the forward's summation-order band, widened by exp(logvar) in
+# the KL), the spectral vectors within 1e-5 (power iterations on the same
+# weights), every parameter within one Adam step of the CPU's (2 lr: after
+# one step, an element whose gradient is rounding noise may move +lr on one
+# side and -lr on the other), and at most 5% of the elements further apart
+# than rounding (1e-6): the generator step's gradient is chaotic in f32 at
+# random weights (the JAX package's own f32 and f64 gradients differ by
+# 4-60% per tensor at 32-128 px), so some signs flip, but few
+STEP_METRIC_RTOL = 2e-3
+STEP_SPECTRAL_ATOL = 1e-5
+STEP_PARAM_SHARE = 0.05
 
 
 def say(msg: str) -> None:
@@ -96,12 +143,13 @@ def randn(shape, seed: int, dtype=torch.float32, scale: float = 1.0):
     return (torch.randn(shape, generator=g) * scale).to(DEV, dtype)
 
 
-def compare(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    atol, rtol = TOL[want.dtype]
+def compare(label: str, got: torch.Tensor, want: torch.Tensor,
+            tol=None) -> float:
+    atol, rtol = tol or TOL[want.dtype]
     require(got.shape == want.shape and got.dtype == want.dtype,
             f"{label}: {tuple(got.shape)}/{got.dtype} vs "
             f"{tuple(want.shape)}/{want.dtype}")
-    g, w = got.float(), want.float()
+    g, w = got.detach().float(), want.detach().float()
     err = (g - w).abs()
     ok = bool(torch.isfinite(g).all()) and bool(
         (err <= atol + rtol * w.abs()).all())
@@ -124,25 +172,42 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """Summed duration of the GPU kernels `fn` launches, per call (from
-    the profiler: what the device spends, without the host's launch gaps)."""
+PROFILE_TRIES = 3
+
+
+def profiled(fn, iters: int):
+    """Runs `fn` `iters` times under torch.profiler. Returns the summed
+    duration of the GPU kernels it launched, per call (what the device
+    spends, without the host's launch gaps), and the key averages. A session
+    that records no device activity at all (CUPTI now and then hands back an
+    empty buffer; the timings from CUDA events are unaffected) is run again,
+    up to PROFILE_TRIES times; after that the device time is None: not
+    measured."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    require(us > 0, "the profiler saw device time")
-    return us / 1e3 / iters
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        us = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters, events
+        say(f"profiler: a session over {iters} calls saw no device time")
+    return None, events
+
+
+def ms_text(ms, digits: int = 4) -> str:
+    return "not measured" if ms is None else f"{ms:.{digits}f}"
 
 
 def kernel_vs_plain(kernel_fn, plain_fn, iters: int) -> dict:
     """Per call, warmed up: the CUDA-event time of a loop of `iters` calls
     (host launch cost included where the host is the slower side), timed
-    in the order plain, kernel, kernel, plain; then the device time."""
+    in the order plain, kernel, kernel, plain; then the device time, where
+    the profiler saw it."""
     for fn in (plain_fn, kernel_fn):
         for _ in range(3):
             fn()
@@ -152,8 +217,22 @@ def kernel_vs_plain(kernel_fn, plain_fn, iters: int) -> dict:
     k2 = cuda_ms(kernel_fn, iters)
     p2 = cuda_ms(plain_fn, iters)
     return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "device_ms": device_ms(kernel_fn, iters),
-            "plain_device_ms": device_ms(plain_fn, iters)}
+            "device_ms": profiled(kernel_fn, iters)[0],
+            "plain_device_ms": profiled(plain_fn, iters)[0]}
+
+
+def measured(t: dict) -> dict:
+    """The numbers of a kernel_vs_plain result that were measured."""
+    return {key: v for key, v in t.items() if v is not None}
+
+
+def add_times(total: dict | None, t: dict) -> dict:
+    """Sums two kernel_vs_plain results key by key; a device time that was
+    not measured on either side stays not measured."""
+    if total is None:
+        return dict(t)
+    return {key: None if total[key] is None or t[key] is None
+            else total[key] + t[key] for key in t}
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +311,79 @@ def phase_kernels() -> dict:
             err = compare(f"starved_conv x{xs} w{(cout, cin, k, k)} "
                           f"{str(dtype)[6:]}", got, want)
             errs["starved_conv"] = max(errs["starved_conv"], err)
+    return errs
+
+
+def phase_train_kernels() -> dict:
+    """The training path's kernels against their plain versions: the conv in
+    its zero-padded modes (dx convs: g with the rotated weight), the weight
+    gradient, and the two autograd Functions against autograd of the plain
+    ops, at the path's shapes at batch 4 and at CONV_CASES."""
+    errs = {"starved_conv_zero_same": 0.0, "starved_conv_zero": 0.0,
+            "starved_conv_dw": 0.0}
+    b16, f32 = torch.bfloat16, torch.float32
+    convs = [((PATH_BATCH, cin, IMAGE, IMAGE), (cout, cin, k))
+             for _, cin, cout, k in TRAIN_CONVS]
+    convs += [((2, cin, h, w), (cout, cin, k))
+              for h, w, cin, cout, k in CONV_CASES]
+    for i, (xs, (cout, cin, k)) in enumerate(convs):
+        n, _, h, w = xs
+        for dtype in (b16, f32):
+            label = f"x{xs} w{(cout, cin, k, k)} {str(dtype)[6:]}"
+            x = randn(xs, 300 + i, dtype)
+            g = randn((n, cout, h, w), 400 + i, dtype)
+            wgt = randn((cout, cin, k, k), 500 + i, dtype,
+                        scale=(2.0 / (cout * k * k)) ** 0.5)
+            wrot = rotate(wgt).contiguous()
+            for mode in ("zero_same", "zero"):
+                err = compare(f"starved_conv {mode} g{(n, cout, h, w)} "
+                              f"wrot{tuple(wrot.shape)} {str(dtype)[6:]}",
+                              zero_conv_cuda(g, wrot, mode),
+                              zero_conv(g, wrot, mode))
+                key = f"starved_conv_{mode}"
+                errs[key] = max(errs[key], err)
+            # dw: f32 out of both, summed in another order over n*h*w
+            # products (the bf16 inputs are the same values in both)
+            want = dw_reference(x, g, k)
+            scale = float(want.abs().max())
+            err = compare(f"starved_conv_dw {label}", dw_cuda(x, g, k), want,
+                          tol=(1e-4 * scale, 0.0))
+            errs["starved_conv_dw"] = max(errs["starved_conv_dw"], err)
+            # the conv's autograd Function against autograd of the plain
+            # conv. bf16 dx: the fold rounds its interior and each border
+            # strip to bf16 before adding them (as JAX does), so a border
+            # element may be off by a rounding of its largest term: one ulp
+            # at dx's largest magnitude plus two of its own
+            xa, wa = x.clone().requires_grad_(), wgt.clone().requires_grad_()
+            y = starved_reflect_conv(xa, wa)
+            dx, dw = torch.autograd.grad(y, (xa, wa), g)
+            xb, wb = x.clone().requires_grad_(), wgt.clone().requires_grad_()
+            y_ref = reflect_conv(xb, wb)
+            dx_ref, dw_ref = torch.autograd.grad(y_ref, (xb, wb), g)
+            compare(f"conv Function y {label}", y, y_ref)
+            compare(f"conv Function dx {label}", dx, dx_ref,
+                    tol=None if dtype == f32 else (
+                        2.0 ** -7 * float(dx_ref.abs().max()), 2.0 ** -6))
+            rel = 1e-4 if dtype == f32 else 1e-2
+            compare(f"conv Function dw {label}", dw, dw_ref,
+                    tol=(rel * float(dw_ref.abs().max()), 0.0))
+    # the norm's autograd Functions: a kernel site and a big slab
+    for i, shape in enumerate([(PATH_BATCH, 16 * BASE, 16, 16),
+                               (PATH_BATCH, BASE, IMAGE // 2, IMAGE // 2)]):
+        for dtype in (b16, f32):
+            for act, order in (("relu", "act_norm"), ("identity", "act_norm"),
+                               ("leaky_relu", "norm_act")):
+                x = randn(shape, 600 + i, dtype, scale=2.0) + 0.5
+                gy = randn(shape, 700 + i, dtype)
+                xa = x.clone().requires_grad_()
+                y = instance_norm_act(xa, act=act, order=order)
+                (dx,) = torch.autograd.grad(y, xa, gy)
+                xb = x.clone().requires_grad_()
+                y_ref = fused_reference(xb, act, order)
+                (dx_ref,) = torch.autograd.grad(y_ref, xb, gy)
+                label = f"IN Function {shape} {str(dtype)[6:]} {act}/{order}"
+                compare(f"{label} y", y, y_ref)
+                compare(f"{label} dx", dx, dx_ref)
     return errs
 
 
@@ -349,14 +501,190 @@ def phase_slice() -> dict:
     return {"task": task, "launches": launches}
 
 
+def _images(batch: int, seed: int) -> np.ndarray:
+    return np.random.RandomState(seed).rand(batch, IMAGE, IMAGE,
+                                            3).astype(np.float32)
+
+
+def _counts() -> tuple:
+    return (in_act_cuda.launches, reflect_conv_cuda.launches,
+            zero_conv_cuda.launches, dw_cuda.launches)
+
+
+def _zero_counts() -> None:
+    for fn in (in_act_cuda, reflect_conv_cuda, zero_conv_cuda, dw_cuda):
+        fn.launches = 0
+
+
+def _finite_metrics(metrics: dict) -> dict:
+    vals = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+    require(all(np.isfinite(v) for v in vals.values()),
+            f"finite metrics: {vals}")
+    return vals
+
+
+def phase_train() -> dict:
+    """The training path: three train_steps of the full-width bf16 task at
+    batch 4, launch counts per step, then eval_step."""
+    task = _task(torch.bfloat16, DEV)
+    batch = {"x": torch.as_tensor(_images(PATH_BATCH, 10), device=DEV),
+             "y": torch.as_tensor(_images(PATH_BATCH, 11), device=DEV)}
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    start = {n: p.detach().clone() for n, p in task.nets.named_parameters()}
+    torch.cuda.synchronize()
+
+    # the main path: the counts cover exactly these steps
+    _zero_counts()
+    for step in range(3):
+        before = _counts()
+        vals = _finite_metrics(task.train_step(batch, generator=gen))
+        per = tuple(a - b for a, b in zip(_counts(), before))
+        require(per == STEP_LAUNCHES,
+                f"step {step}: {per} launches of (in_act, reflect conv, "
+                f"zero_same conv, dw), expected {STEP_LAUNCHES}")
+        require(vals["nan_detected"] == 0.0, f"step {step} skipped an update")
+        say(f"train step {step} (bf16, batch {PATH_BATCH}): G_loss "
+            f"{vals['G_loss']:.4f}, D_loss {vals['D_loss']:.4f}, loss_kl "
+            f"{vals['loss_kl']:.2f}, nan_detected 0; launches {per} ok")
+    launches = dict(zip(("in_act", "starved_conv", "starved_conv_zero_same",
+                         "starved_conv_dw"), _counts()))
+    stuck = [n for n, p in task.nets.named_parameters()
+             if torch.equal(p, start[n])]
+    require(not stuck, f"parameters that did not move: {stuck}")
+    say(f"train: 3 steps, launches {launches}; all {len(start)} parameter "
+        f"tensors moved")
+    metrics = task.eval_step(batch, generator=gen)
+    _finite_metrics(metrics)
+    for key in ("Gx", "Fy"):
+        out = metrics[key]
+        require(tuple(out.shape) == (PATH_BATCH, IMAGE, IMAGE, 3)
+                and bool(torch.isfinite(out).all()),
+                f"eval_step {key} {tuple(out.shape)} finite")
+    say(f"eval_step: G_loss {float(metrics['G_loss']):.4f}, Gx and Fy "
+        f"{tuple(metrics['Gx'].shape)} finite")
+    return {"task": task, "launches": launches}
+
+
+def phase_train_f32() -> None:
+    """One f32 train_step at batch 1 on the card (TF32 off) against the
+    port's CPU step from the same weights, batch and noise."""
+    rng = np.random.RandomState(20)
+    batch = {"x": _images(1, 21), "y": _images(1, 22)}
+    eps = [rng.randn(1, IMAGE // 16, IMAGE // 16, LATENT).astype(np.float32)
+           for _ in GEN_PASSES]
+    gpu, cpu = _task(torch.float32, DEV), _task(torch.float32, "cpu")
+    got = _finite_metrics(gpu.train_step(batch, eps=eps))
+    t0 = time.perf_counter()
+    want = _finite_metrics(cpu.train_step(batch, eps=eps))
+    cpu_s = time.perf_counter() - t0
+    worst = max(abs(got[k] - want[k]) / (abs(want[k]) + 1e-3) for k in want)
+    ok = all(abs(got[k] - want[k]) <= STEP_METRIC_RTOL * abs(want[k]) + 1e-5
+             for k in want)
+    say(f"check train_step f32 card vs CPU (batch 1, TF32 off, CPU step "
+        f"{cpu_s:.1f} s): metrics max relative error {worst:.3e} (rtol "
+        f"{STEP_METRIC_RTOL:g}, atol 1e-5) {'ok' if ok else 'FAIL'}")
+    require(ok, f"train_step metrics card vs CPU: {got} vs {want}")
+    lr = gpu.oc.lr
+    gsd, csd = gpu.state_dict(), cpu.state_dict()
+    spec, par, n, beyond_round, flipped = 0.0, 0.0, 0, 0, 0
+    for name, c in csd.items():
+        d = (gsd[name].cpu() - c).abs()
+        if name.endswith(("weight_u", "weight_v")):
+            spec = max(spec, float(d.max()))
+            continue
+        par = max(par, float(d.max()))
+        n += d.numel()
+        beyond_round += int((d > 1e-6).sum())
+        flipped += int((d > lr).sum())
+    say(f"check train_step f32 card vs CPU: spectral u/v max_abs_err "
+        f"{spec:.3e} (atol {STEP_SPECTRAL_ATOL:g}); parameters max_abs_err "
+        f"{par:.3e} = {par / lr:.3f} lr (bound 2 lr + 1e-6); "
+        f"{beyond_round / n:.4f} of {n} elements differ by more than 1e-6 "
+        f"(bound {STEP_PARAM_SHARE:g}), "
+        f"{flipped / n:.4f} by more than lr (opposite Adam signs)")
+    require(spec <= STEP_SPECTRAL_ATOL, "spectral vectors card vs CPU")
+    require(par <= 2 * lr + 1e-6, "parameters card vs CPU within one Adam step")
+    require(beyond_round / n <= STEP_PARAM_SHARE,
+            f"parameters card vs CPU: more than {STEP_PARAM_SHARE:g} of the "
+            "elements differ beyond rounding")
+
+
+def phase_train_times(card: str, tr: dict) -> dict:
+    b16 = torch.bfloat16
+    times = {}
+
+    def show(label, t):
+        say(f"time {label} bf16: kernel {t['ms']:.4f} ms (device "
+            f"{ms_text(t['device_ms'])}), plain {t['plain_ms']:.4f} ms "
+            f"(device {ms_text(t['plain_device_ms'])}) [{card}]")
+
+    # the new kernels at the training path's shapes, batch 4
+    dx_total = dw_total = None
+    for name, cin, cout, k in TRAIN_CONVS:
+        x = randn((PATH_BATCH, cin, IMAGE, IMAGE), 30, b16)
+        g = randn((PATH_BATCH, cout, IMAGE, IMAGE), 31, b16)
+        wrot = rotate(randn((cout, cin, k, k), 32, b16, 0.05)).contiguous()
+        t = kernel_vs_plain(lambda: zero_conv_cuda(g, wrot),
+                            lambda: zero_conv(g, wrot), 10)
+        show(f"starved_conv zero_same {name} dx g{tuple(g.shape)} "
+             f"wrot{tuple(wrot.shape)}", t)
+        dx_total = add_times(dx_total, t)
+        t = kernel_vs_plain(lambda: dw_cuda(x, g, k),
+                            lambda: dw_reference(x, g, k), 10)
+        show(f"starved_conv_dw {name} x{tuple(x.shape)} g{tuple(g.shape)} "
+             f"k{k}", t)
+        dw_total = add_times(dw_total, t)
+    times["starved_conv_zero_same"] = dx_total
+    times["starved_conv_dw"] = dw_total
+
+    # training step time, device busy time and peak memory per batch size
+    task = tr["task"]
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    for b in TRAIN_BATCHES:
+        batch = {"x": torch.as_tensor(_images(b, 40 + b), device=DEV),
+                 "y": torch.as_tensor(_images(b, 41 + b), device=DEV)}
+        for _ in range(2):
+            task.train_step(batch, generator=gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lat = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            vals = _finite_metrics(task.train_step(batch, generator=gen))
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            require(vals["nan_detected"] == 0.0, "timed step skipped")
+        med = float(np.median(lat))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        # device busy time and where it goes, by kernel, over 2 steps
+        busy, events = profiled(lambda: task.train_step(batch, generator=gen),
+                                2)
+        idle = "not measured" if busy is None else \
+            f"{max(0.0, 1 - busy / med):.3f}"
+        times[("train", b)] = med
+        say(f"time train_step batch {b} bf16: median {med:.2f} ms of "
+            f"{len(lat)} (min {min(lat):.2f}, max {max(lat):.2f}), "
+            f"{b / med * 1e3:.1f} img/s, device busy {ms_text(busy, 2)} ms "
+            f"per step (idle share {idle}), peak memory {peak:.0f} MiB "
+            f"[{card}]")
+        table = events.table(sort_by="self_cuda_time_total", row_limit=45)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / f"profile_train_batch{b}.txt").write_text(table)
+        say(f"profile (train_step, batch {b}, 2 steps; top self device time, "
+            f"full table in chiprun_out/profile_train_batch{b}.txt):")
+        for line in table.splitlines()[:20]:
+            say(f"  {line}")
+    return times
+
+
 def phase_times(card: str, sl: dict) -> dict:
     b16 = torch.bfloat16
     times = {}
 
     def show(label, t):
         say(f"time {label} bf16: kernel {t['ms']:.4f} ms (device "
-            f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms (device "
-            f"{t['plain_device_ms']:.4f}) [{card}]")
+            f"{ms_text(t['device_ms'])}), plain {t['plain_ms']:.4f} ms "
+            f"(device {ms_text(t['plain_device_ms'])}) [{card}]")
 
     # kernels at the path shapes (batch 4 and 16, bf16)
     for b in (PATH_BATCH, 16):
@@ -366,7 +694,7 @@ def phase_times(card: str, sl: dict) -> dict:
                             200)
         times[("in_act", b)] = t
         show(f"in_act {tuple(x.shape)}", t)
-        total = dict.fromkeys(t, 0.0)
+        total = None
         for name, cin, cout, kk in (("U4", BASE // 2, BASE, 3),
                                     ("tail", BASE, 3, 7)):
             x = randn((b, cin, IMAGE, IMAGE), 8, b16)
@@ -374,7 +702,7 @@ def phase_times(card: str, sl: dict) -> dict:
             t = kernel_vs_plain(lambda: reflect_conv_cuda(x, w),
                                 lambda: reflect_conv(x, w), 20)
             show(f"starved_conv {name} x{tuple(x.shape)} w{tuple(w.shape)}", t)
-            total = {key: total[key] + t[key] for key in t}
+            total = add_times(total, t)
         times[("starved_conv", b)] = total
 
     # request latency per batch size, peak memory, and the device's busy
@@ -399,26 +727,22 @@ def phase_times(card: str, sl: dict) -> dict:
             lat.append((time.perf_counter() - t0) * 1e3)
         med = float(np.median(lat))
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
-        busy = device_ms(lambda: task.generate({"x": x}, generator=gen), 5)
+        busy = profiled(lambda: task.generate({"x": x}, generator=gen), 5)[0]
+        idle = "not measured" if busy is None else \
+            f"{max(0.0, 1 - busy / med):.2f}"
         times[("slice", b)] = med
         say(f"time slice generate batch {b} bf16: median {med:.3f} ms of "
             f"{len(lat)} (min {min(lat):.3f}, max {max(lat):.3f}), "
-            f"{b / med * 1e3:.1f} img/s, device busy {busy:.3f} ms per "
-            f"request (idle share {max(0.0, 1 - busy / med):.2f}), peak "
-            f"memory {peak:.0f} MiB, {peak - f_mib:.0f} MiB without F's "
-            f"unread weights ({f_mib:.1f} MiB) [{card}]")
+            f"{b / med * 1e3:.1f} img/s, device busy {ms_text(busy, 3)} ms "
+            f"per request (idle share {idle}), peak memory {peak:.0f} MiB, "
+            f"{peak - f_mib:.0f} MiB without F's unread weights "
+            f"({f_mib:.1f} MiB) [{card}]")
 
     # where the device time of batch-4 requests goes, by kernel
     x = torch.as_tensor(np.random.RandomState(0).rand(
         PATH_BATCH, IMAGE, IMAGE, 3).astype(np.float32), device=DEV)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(5):
-            task.generate({"x": x})
-        torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                      row_limit=30)
+    events = profiled(lambda: task.generate({"x": x}), 5)[1]
+    table = events.table(sort_by="self_cuda_time_total", row_limit=30)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "profile_batch4.txt").write_text(table)
     say("profile (batch 4, 5 requests; top self device time, full table in "
@@ -432,22 +756,41 @@ def main() -> None:
     card = phase_card()
     phase_build()
     errs = phase_kernels()
+    errs.update(phase_train_kernels())
     sl = phase_slice()
     times = phase_times(card, sl)
+    del sl
+    tr = phase_train()
+    phase_train_f32()
+    times.update(phase_train_times(card, tr))
+    launches = tr["launches"]  # the training path's three steps
+    conv_src = "vae_cyclegan_tpu_torch/csrc/starved_conv.cu"
     summary = {"kernels": [
         {"name": "in_act", "route": "cuda",
          "source": "vae_cyclegan_tpu_torch/csrc/in_act.cu",
          "replaces": "vae_cyclegan_tpu/ops/instance_norm.py:110",
-         "launches": sl["launches"]["in_act"],
+         "launches": launches["in_act"],
          "max_abs_err": errs["in_act"],
-         **times[("in_act", PATH_BATCH)]},
-        {"name": "starved_conv", "route": "cuda",
-         "source": "vae_cyclegan_tpu_torch/csrc/starved_conv.cu",
+         **measured(times[("in_act", PATH_BATCH)])},
+        {"name": "starved_conv", "route": "cuda", "source": conv_src,
          "replaces": "vae_cyclegan_tpu/ops/starved_conv.py:279",
-         "launches": sl["launches"]["starved_conv"],
+         "launches": launches["starved_conv"],
          "max_abs_err": errs["starved_conv"],
          # U4 + tail: one generator forward's two sites at batch 4
-         **times[("starved_conv", PATH_BATCH)]},
+         **measured(times[("starved_conv", PATH_BATCH)])},
+        {"name": "starved_conv_zero_same", "route": "cuda", "source": conv_src,
+         "replaces": "vae_cyclegan_tpu/ops/starved_conv.py:279",
+         "launches": launches["starved_conv_zero_same"],
+         "max_abs_err": errs["starved_conv_zero_same"],
+         # head + U4 + tail dx at batch 4
+         **measured(times["starved_conv_zero_same"])},
+        {"name": "starved_conv_dw", "route": "cuda",
+         "source": "vae_cyclegan_tpu_torch/csrc/starved_dw.cu",
+         "replaces": "vae_cyclegan_tpu/ops/starved_conv.py:394",
+         "launches": launches["starved_conv_dw"],
+         "max_abs_err": errs["starved_conv_dw"],
+         # head + U4 + tail dw at batch 4
+         **measured(times["starved_conv_dw"])},
     ]}
     print(json.dumps(summary), flush=True)
     print(f"card (name, power.limit): {card}", flush=True)

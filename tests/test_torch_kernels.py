@@ -21,8 +21,12 @@ from vae_cyclegan_tpu_torch.ops.instance_norm import (
 )
 from vae_cyclegan_tpu_torch.ops.reflect_conv import reflect_conv
 from vae_cyclegan_tpu_torch.ops.starved_conv import (
+    dw_cuda,
+    dw_reference,
     reflect_conv_cuda,
     starved_reflect_conv,
+    zero_conv,
+    zero_conv_cuda,
 )
 
 pytestmark = pytest.mark.gpu
@@ -86,6 +90,100 @@ def test_starved_conv_kernel_matches_plain(cuda, h, w, cin, cout, k, dtype):
     _assert_close(reflect_conv_cuda(x, wgt), reflect_conv(x, wgt))
 
 
+@pytest.mark.parametrize("mode", ["zero_same", "zero"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,w,cin,cout,k", CONV_CASES)
+def test_zero_conv_kernel_matches_plain(cuda, h, w, cin, cout, k, dtype,
+                                        mode):
+    x = _randn((2, cin, h, w), 11, cuda, dtype)
+    wgt = _randn((cout, cin, k, k), 12, cuda, dtype,
+                 (2.0 / (cout * k * k)) ** 0.5)
+    _assert_close(zero_conv_cuda(x, wgt, mode), zero_conv(x, wgt, mode))
+
+
+# the training path's dw sites (head, U4, tail at 256x256) and CONV_CASES
+DW_CASES = CONV_CASES + [(256, 256, 3, 64, 7)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,w,cin,cout,k", DW_CASES)
+def test_dw_kernel_matches_plain(cuda, h, w, cin, cout, k, dtype):
+    """f32 out of both: they differ in summation order only, over n*h*w
+    products (131,072 at 256x256), so the bound is relative to the largest
+    weight gradient: 1e-4 of it in f32; bf16 inputs are the same values in
+    both, so the same bound holds."""
+    x = _randn((2, cin, h, w), 13, cuda, dtype)
+    g = _randn((2, cout, h, w), 14, cuda, dtype)
+    got, want = dw_cuda(x, g, k), dw_reference(x, g, k)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float32
+    assert got.shape == want.shape == (cout, cin, k, k)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    # two passes in a fixed order: bit for bit the same on a rerun
+    assert torch.equal(dw_cuda(x, g, k), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,w,cin,cout,k", CONV_CASES)
+def test_conv_function_gradients_match_plain_autograd(cuda, h, w, cin, cout,
+                                                      k, dtype):
+    """starved_reflect_conv's (y, dx, dw) against autograd of the plain
+    reflect conv, on the same inputs and cotangent. In bf16 the port rounds
+    the fold's interior and each border strip to bf16 before adding them
+    (as the JAX package does), the plain backward rounds once per conv: a
+    border element may be off by a rounding of its largest term, so dx gets
+    one ulp at its largest magnitude plus two of its own."""
+    x = _randn((2, cin, h, w), 15, cuda, dtype)
+    wgt = _randn((cout, cin, k, k), 16, cuda, dtype,
+                 (2.0 / (cout * k * k)) ** 0.5)
+    gy = _randn((2, cout, h, w), 17, cuda, dtype)
+    before = (reflect_conv_cuda.launches, zero_conv_cuda.launches,
+              dw_cuda.launches)
+    xa, wa = x.clone().requires_grad_(), wgt.clone().requires_grad_()
+    y = starved_reflect_conv(xa, wa)
+    dx, dw = torch.autograd.grad(y, (xa, wa), gy)
+    xb, wb = x.clone().requires_grad_(), wgt.clone().requires_grad_()
+    y_ref = reflect_conv(xb, wb)
+    dx_ref, dw_ref = torch.autograd.grad(y_ref, (xb, wb), gy)
+    launched = (reflect_conv_cuda.launches - before[0],
+                zero_conv_cuda.launches - before[1],
+                dw_cuda.launches - before[2])
+    assert launched == (int(cin >= 8), 1, 1)
+    _assert_close(y, y_ref)
+    if dtype == torch.float32:
+        _assert_close(dx, dx_ref)
+    else:
+        assert dx.dtype == dx_ref.dtype
+        torch.testing.assert_close(
+            dx.float(), dx_ref.float(), rtol=2 ** -6,
+            atol=2 ** -7 * float(dx_ref.abs().max()))
+    atol = (1e-4 if dtype == torch.float32 else 1e-2) * float(
+        dw_ref.abs().max())
+    torch.testing.assert_close(dw.float(), dw_ref.float(), rtol=0,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(4, 1024, 16, 16), (2, 64, 128, 128)])
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "identity"])
+@pytest.mark.parametrize("order", ["norm_act", "act_norm"])
+def test_in_act_function_gradients_match_plain_autograd(cuda, shape, dtype,
+                                                        act, order):
+    """instance_norm_act's (y, dx), kernel site (16x16x1024) and big slab
+    (128x128x64, plain), against autograd of the plain version."""
+    x = _randn(shape, 18, cuda, dtype, 2.0) + 0.5
+    gy = _randn(shape, 19, cuda, dtype)
+    xa = x.clone().requires_grad_()
+    y = instance_norm_act(xa, act=act, order=order)
+    (dx,) = torch.autograd.grad(y, xa, gy)
+    xb = x.clone().requires_grad_()
+    y_ref = fused_reference(xb, act, order)
+    (dx_ref,) = torch.autograd.grad(y_ref, xb, gy)
+    _assert_close(y, y_ref)
+    _assert_close(dx, dx_ref)
+
+
 def test_dispatchers_launch_the_kernels_on_cuda(cuda):
     x = _randn((2, 64, 16, 16), 3, cuda, torch.bfloat16)
     before = in_act_cuda.launches
@@ -106,7 +204,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         in_act_cuda(x.half(), "relu", "act_norm")
     with pytest.raises(ValueError):
         in_act_cuda(x.transpose(2, 3), "relu", "act_norm")
-    with pytest.raises(RuntimeError, match="forward-only"):
+    with pytest.raises(RuntimeError, match="not differentiable"):
         in_act_cuda(x.requires_grad_(), "relu", "act_norm")
     x = _randn((2, 8, 32, 32), 7, cuda, torch.float32)
     w = _randn((16, 8, 3, 3), 8, cuda, torch.float32)
@@ -114,8 +212,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         reflect_conv_cuda(x, w.bfloat16())
     with pytest.raises(ValueError):
         reflect_conv_cuda(x, w[:, :, :2, :2].contiguous())
-    with pytest.raises(RuntimeError, match="forward-only"):
+    with pytest.raises(RuntimeError, match="not differentiable"):
         reflect_conv_cuda(x, w.requires_grad_())
+    with pytest.raises(ValueError):
+        zero_conv_cuda(x, w, "reflect")
+    with pytest.raises(TypeError):
+        dw_cuda(x, _randn((2, 16, 32, 32), 9, cuda, torch.bfloat16), 3)
+    with pytest.raises(ValueError):
+        dw_cuda(x, _randn((2, 16, 32, 30), 9, cuda, torch.float32), 3)
 
 
 def test_slice_on_cuda_launches_each_picked_site_and_matches_cpu(cuda):

@@ -145,6 +145,201 @@ def test_reflect_conv_matches_jax_kernel_and_naive(jax_starved_interpret, h, w,
     assert np.abs(got - naive).max() < 5e-5
 
 
+def _cm(t):
+    """NCHW torch -> channel-major (N, H, C, W) jax array."""
+    return jnp.asarray(np.transpose(t.float().numpy(), (0, 2, 1, 3)),
+                       jnp.bfloat16 if t.dtype == torch.bfloat16
+                       else jnp.float32)
+
+
+def _from_cm(a):
+    """channel-major (N, H, C, W) jax array -> NCHW f32 numpy."""
+    return np.transpose(np.asarray(a, np.float32), (0, 2, 1, 3))
+
+
+def _hwio(w):
+    """OIHW torch -> HWIO jax array, in w's dtype."""
+    return jnp.asarray(np.transpose(w.float().numpy(), (2, 3, 1, 0)),
+                       jnp.bfloat16 if w.dtype == torch.bfloat16
+                       else jnp.float32)
+
+
+def _conv_inputs(seed, n, cin, cout, h, w, k):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(n, cin, h, w).astype(np.float32))
+    wgt = torch.from_numpy((rng.randn(cout, cin, k, k) * 0.1)
+                           .astype(np.float32))
+    g = torch.from_numpy(rng.randn(n, cout, h, w).astype(np.float32))
+    return x, wgt, g
+
+
+@pytest.mark.parametrize("mode", ["zero_same", "zero"])
+@pytest.mark.parametrize("h,w,cin,cout,k", CONV_CASES)
+def test_zero_conv_plain_matches_jax_kernel(jax_starved_interpret, h, w, cin,
+                                            cout, k, mode):
+    """The plain zero-padded conv against _conv_call in the same mode
+    (interpret mode), f32, atol 5e-5 as tests/test_starved_conv.py; measured
+    max error 1.0e-5 over the twelve cases."""
+    x, wgt, _ = _conv_inputs(k + cin, 2, cin, cout, h, w, k)
+    got = tsc.zero_conv(x, wgt, mode).numpy()
+    want = _from_cm(jsc._conv_dispatch_cm(_cm(x), _hwio(wgt), pad_mode=mode))
+    grow = k - 1 if mode == "zero" else 0
+    assert got.shape == want.shape == (2, cout, h + grow, w + grow)
+    assert np.abs(got - want).max() < 5e-5
+
+
+@pytest.mark.parametrize("h,w,cin,cout,k", CONV_CASES)
+def test_dw_plain_matches_jax_kernel(jax_starved_interpret, h, w, cin, cout,
+                                     k):
+    """dw_reference against _dw_call (interpret mode): f32 (k, k, cin, cout)
+    from both, within 1e-5 of the largest weight gradient (sums of 2*h*w
+    products in another order); measured at most 1.0e-6 of it."""
+    x, _, g = _conv_inputs(k + cout, 2, cin, cout, h, w, k)
+    got = tsc.dw_reference(x, g, k).numpy().transpose(2, 3, 1, 0)
+    want = np.asarray(jsc._dw_call(_cm(x), _cm(g), k=k))
+    assert got.shape == want.shape == (k, k, cin, cout)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("h,w,cin,cout,k", [
+    (32, 40, 8, 3, 7), (40, 32, 16, 8, 3), (48, 48, 3, 8, 5),
+    (32, 32, 64, 3, 7), (32, 32, 3, 64, 7)])
+def test_dx_border_fold_matches_oracle_and_jax(jax_starved_interpret, h, w,
+                                               cin, cout, k):
+    """dx of the reflect conv for an incoming gradient g with cin channels
+    and the rotated weight (cout out, as tests/test_starved_conv.py): the
+    port's fold against its oracle (reflect_fold of the full correlation),
+    against the JAX package's oracle (_reflect_fold_cm of _conv_call's zero
+    mode) and against JAX's _dx_with_border_fold, f32, atol 5e-5; measured
+    max errors 0 (bit for bit), 1.3e-5 and 1.4e-5."""
+    rng = np.random.RandomState(h + cin)
+    g = torch.from_numpy(rng.randn(2, cin, h, w).astype(np.float32))
+    wrot = torch.from_numpy((rng.randn(cout, cin, k, k) * 0.1)
+                            .astype(np.float32))
+    got = tsc.dx_with_border_fold(g, wrot).numpy()
+    oracle = tsc.reflect_fold(tsc.zero_conv(g, wrot, "zero"), k // 2).numpy()
+    jax_oracle = _from_cm(jsc._reflect_fold_cm(jsc._conv_dispatch_cm(
+        _cm(g), _hwio(wrot), pad_mode="zero"), k // 2))
+    want = _from_cm(jsc._dx_with_border_fold(_cm(g), _hwio(wrot), k // 2))
+    assert got.shape == oracle.shape == want.shape == (2, cout, h, w)
+    assert np.abs(got - oracle).max() < 5e-5
+    assert np.abs(got - jax_oracle).max() < 5e-5
+    assert np.abs(got - want).max() < 5e-5
+
+
+def _bf16_band(want):
+    """One bf16 rounding of each element, plus one at the largest magnitude
+    for sums whose terms were rounded in another order."""
+    return 2.0 ** -7 * (np.abs(want) + np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,w,cin,cout,k", CONV_CASES)
+def test_conv_function_gradients_match_jax_vjp(jax_starved_interpret, h, w,
+                                               cin, cout, k, dtype):
+    """starved_reflect_conv's (y, dx, dw) against jax.vjp of the JAX
+    package's _starved_conv (its custom VJP, kernels in interpret mode).
+    f32: atol 5e-5 for y and dx, 5e-4 for dw, as tests/test_starved_conv.py
+    (measured 1.0e-5, 8.6e-6 and 1.8e-4). bf16, on the same bf16 inputs:
+    both round y, dx and dw to bf16 at the same places, so they agree to one
+    rounding (``_bf16_band``; measured at most 0.16 of it)."""
+    x, wgt, g = _conv_inputs(h + cout, 2, cin, cout, h, w, k)
+    tdt = getattr(torch, dtype)
+    x, wgt, g = x.to(tdt), wgt.to(tdt), g.to(tdt)
+    xa, wa = x.clone().requires_grad_(), wgt.clone().requires_grad_()
+    y = tsc.starved_reflect_conv(xa, wa)
+    dx, dw = torch.autograd.grad(y, (xa, wa), g)
+    assert y.dtype == dx.dtype == dw.dtype == tdt
+    nhwc = lambda t: jnp.asarray(  # noqa: E731
+        np.transpose(t.float().numpy(), (0, 2, 3, 1)), getattr(jnp, dtype))
+    jy, vjp = jax.vjp(jsc._starved_conv, nhwc(x), _hwio(wgt))
+    jdx, jdw = vjp(nhwc(g))
+    pairs = [(_to_nhwc(y.detach()), jy), (_to_nhwc(dx), jdx),
+             (dw.float().numpy().transpose(2, 3, 1, 0), jdw)]
+    for i, (got, want) in enumerate(pairs):
+        want = np.asarray(want, np.float32)
+        assert got.shape == want.shape
+        if dtype == "float32":
+            assert np.abs(got - want).max() < (5e-4 if i == 2 else 5e-5)
+        else:
+            assert (np.abs(got - want) <= _bf16_band(want)).all(), i
+
+
+def test_conv_function_skips_dx_for_data_inputs():
+    """dx is computed only where x needs a gradient (the heads fed with
+    data); dw always."""
+    x, wgt, g = _conv_inputs(0, 2, 3, 16, 32, 32, 7)
+    wa = wgt.clone().requires_grad_()
+    with kernels.record_sites() as sites:
+        y = tsc.starved_reflect_conv(x, wa)
+        (dw,) = torch.autograd.grad(y, wa, g)
+    assert [s[0] for s in sites] == ["starved_conv_dw"]
+    xa = x.clone().requires_grad_()
+    with kernels.record_sites() as sites:
+        y = tsc.starved_reflect_conv(xa, wa)
+        dx, dw2 = torch.autograd.grad(y, (xa, wa), g)
+    assert sorted(s[0] for s in sites) == ["starved_conv_dw",
+                                           "starved_conv_dx"]
+    assert sites[0][1:] == ((2, 16, 32, 32), "float32", 7, 16, 3, None,
+                            None) or sites[1][1:] == (
+        (2, 16, 32, 32), "float32", 7, 16, 3, None, None)
+    torch.testing.assert_close(dw, dw2, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("act", ACTS)
+def test_in_act_kernel_site_gradient_matches_jax(act, order, dtype):
+    """A kernel site (slab <= 1 MB): instance_norm_act's dx against
+    _fused_tpu_bwd on the same x and cotangent. f32: rtol and atol 1e-5
+    (measured max error 9.5e-7, 0.05 of the bound); bf16: one rounding (the
+    f32 math agrees to ~1e-6 before both round to bf16; measured at most
+    1.0e-3 of the band)."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 8, 8, 16).astype(np.float32) + 0.3
+    g = rng.randn(2, 8, 8, 16).astype(np.float32)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    xt = _to_nchw(x).to(tdt).requires_grad_()
+    y = tin.instance_norm_act(xt, act=act, order=order)
+    (dx,) = torch.autograd.grad(y, xt, _to_nchw(g).to(tdt))
+    (want,) = jin._fused_tpu_bwd(act, order, 1e-5, jnp.asarray(x, jdt),
+                                 jnp.asarray(g, jdt))
+    got, want = _to_nhwc(dx), np.asarray(want, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert (np.abs(got - want) <= _bf16_band(want)).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("act", ACTS)
+def test_in_act_big_slab_gradient_matches_jax(monkeypatch, act, order, dtype):
+    """A slab over 1 MB (plain forward, saved mean and rsqrt): dx against
+    _fused_xla_bwd with the residuals of _fused_xla_fwd, whose statistics
+    are set to the centered form the port keeps (VCT_IN_TWOPASS=1). f32:
+    rtol and atol 1e-5 (sums over 4096 elements; measured max error 1.8e-5,
+    0.26 of the bound); bf16: one rounding (measured at most 0.40 of the
+    band)."""
+    monkeypatch.setenv("VCT_IN_TWOPASS", "1")
+    rng = np.random.RandomState(4)
+    x = rng.randn(1, 64, 64, 80).astype(np.float32) + 0.3
+    g = rng.randn(1, 64, 64, 80).astype(np.float32)
+    assert not tin.slab_fits((1, 80, 64, 64))
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    xt = _to_nchw(x).to(tdt).requires_grad_()
+    y = tin.instance_norm_act(xt, act=act, order=order)
+    (dx,) = torch.autograd.grad(y, xt, _to_nchw(g).to(tdt))
+    _, res = jin._fused_xla_fwd(jnp.asarray(x, jdt), act, order, 1e-5, (1, 2))
+    (want,) = jin._fused_xla_bwd(act, order, 1e-5, (1, 2), res,
+                                 jnp.asarray(g, jdt))
+    got, want = _to_nhwc(dx), np.asarray(want, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert (np.abs(got - want) <= _bf16_band(want)).all()
+
+
 def test_starved_conv_dispatch_on_cpu_takes_plain_version():
     x = torch.randn(2, 32, 64, 64, generator=torch.Generator().manual_seed(0))
     w = torch.randn(64, 32, 3, 3, generator=torch.Generator().manual_seed(1))
@@ -156,6 +351,10 @@ def test_starved_conv_dispatch_on_cpu_takes_plain_version():
                       None, None)]
     with pytest.raises(ValueError, match="CUDA"):
         tsc.reflect_conv_cuda(x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsc.zero_conv_cuda(x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsc.dw_cuda(x, y, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +423,8 @@ def test_kernel_library_is_keyed_by_sources(tmp_path):
     assert path.name.startswith("vct_kernels_") and path.suffix == ".so"
     assert path == kernels.library_path(tmp_path)
     names = {p.name for p in kernels._sources()}
-    assert {"in_act.cu", "starved_conv.cu", "common.cuh"} <= names
+    assert {"in_act.cu", "starved_conv.cu", "starved_dw.cu",
+            "common.cuh"} <= names
 
 
 def test_port_imports_no_jax():

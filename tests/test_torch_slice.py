@@ -34,18 +34,23 @@ ATOL, RTOL = 1e-3, 1e-2  # tests/test_reference_parity.py's band
 
 @pytest.fixture(scope="module")
 def pair():
-    """(JAX task, its G/F params, the port's task loaded from them)."""
+    """(JAX task, its G/F params, the port's task loaded from them and the
+    discriminators' params and spectral vectors)."""
     jtask = jax_create_task("cyclevaegan", model=JModelConfig(
         image_size=IMAGE, latent_dim=LATENT, base_width=BASE))
     x = jnp.zeros((1, IMAGE, IMAGE, 3), jnp.float32)
-    params = {}
-    for name, seed in (("G", 0), ("F", 1)):
+    params, spectral = {}, {}
+    for name, seed in (("G", 0), ("F", 1), ("DX", 2), ("DY", 3)):
         key = jax.random.PRNGKey(seed)
-        tree = getattr(jtask, name).init({"params": key, "reparam": key}, x)
-        params[name] = jax.tree_util.tree_map(np.asarray, tree["params"])
+        tree = jax.tree_util.tree_map(np.asarray, getattr(jtask, name).init(
+            {"params": key, "reparam": key}, x))
+        params[name] = tree["params"]
+        if "spectral" in tree:
+            spectral[name] = tree["spectral"]
     ttask = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT, BASE))
-    ttask.load_state_dict(params_from_jax(params), strict=True)
-    return jtask, params, ttask
+    ttask.load_state_dict(params_from_jax(params, spectral), strict=True)
+    gen = {name: params[name] for name in ("G", "F")}
+    return jtask, gen, ttask
 
 
 def _jax_generate(jtask, params, x, eps):
@@ -121,11 +126,22 @@ def test_init_is_seeded_and_matches_reference_init():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
         if name.endswith(".bias"):
             assert not a.any()
+        elif name.endswith((".weight_u", ".weight_v")):  # unit normal
+            assert abs(float(a.norm()) - 1.0) < 1e-5, name
         else:  # Kaiming normal, fan_out, relu gain
             cout, _, kh, kw = a.shape
             std = float(a.std())
             assert 0.5 < std / np.sqrt(2.0 / (cout * kh * kw)) < 1.5, name
-    assert len(task.state_dict()) == 2 * 36   # G and F, 18 convs each
+    # G and F, 18 convs each; DX and DY, 4 convs and the spectral conv's
+    # bias, weight_orig, weight_u, weight_v each
+    assert len(task.state_dict()) == 2 * 36 + 2 * 12
+    # the generators' draws come first: adding the discriminators did not
+    # change them
+    gen_only = torch.Generator().manual_seed(3)
+    first = task.G.encoder.model[0].conv.weight
+    torch.testing.assert_close(
+        first, torch.randn(first.shape, generator=gen_only)
+        * np.sqrt(2.0 / (first.shape[0] * 49)), rtol=0, atol=0)
 
 
 def test_configs_default_to_the_jax_package_values():

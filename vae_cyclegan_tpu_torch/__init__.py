@@ -6,8 +6,9 @@ kernels for Hopper (``csrc/``, built by ``kernels.load`` at first use). The
 JAX package is the reference the port is tested against; this package
 imports neither it nor JAX.
 
-Ported so far: the cyclevaegan generator's serving path,
-``models.tasks.create_task("cyclevaegan", ...)`` -> ``inference.run_inference``.
+Ported so far: the cyclevaegan task, ``models.tasks.create_task(
+"cyclevaegan", ...)``: its serving path (``inference.run_inference``) and
+its training step (``train_step`` / ``eval_step``).
 """
 
 from vae_cyclegan_tpu_torch.config import LossConfig, ModelConfig, OptimConfig

@@ -2,7 +2,8 @@
 
 Counterpart of ``vae_cyclegan_tpu/config.py`` with torch dtypes. The JAX
 config's ``use_pallas`` and ``remat`` have no counterpart: on the card the
-dispatch rules choose the kernels, and rematerialization belongs to training.
+dispatch rules choose the kernels, and rematerialization
+(``torch.utils.checkpoint``) waits until a batch needs it (ROADMAP.md).
 """
 
 from __future__ import annotations

@@ -1,13 +1,23 @@
-// Reflect-padded SAME convolution, stride 1, odd k: NCHW input, OIHW weight,
-// NCHW output, f32 accumulation, output in the input type. No bias (the
-// caller adds it, as the JAX blocks do).
+// Stride-1 convolution, odd k, in the three padding modes of the TPU kernel:
+// NCHW input, OIHW weight, NCHW output, f32 accumulation, output in the input
+// type. No bias (the caller adds it, as the JAX blocks do).
 //
-// Replaces vae_cyclegan_tpu/ops/starved_conv.py::_conv_call in reflect mode
-// (kernel body _conv_kernel): the big-spatial, low-channel convs of the
-// decoder, U4 (k3, 32->64 at 256x256) and the tail (k7, 64->3 at 256x256).
-// Like the TPU kernel, it resolves the reflect halo in the loader, so no padded
-// copy of the input is ever written to device memory: row and column -1 read
-// 1, row H reads H-2 (no edge repeat), as _row_specs / _padded_row do.
+//   mode 0, reflect:   reflect-padded SAME (pad k/2), output h x w
+//   mode 1, zero_same: zero-padded SAME (pad k/2), output h x w
+//   mode 2, zero:      zero-padded FULL correlation (pad k-1), output
+//                      (h+k-1) x (w+k-1)
+//
+// Replaces vae_cyclegan_tpu/ops/starved_conv.py::_conv_call (kernel body
+// _conv_kernel) in all three of its modes. On the training path, reflect is
+// the forward of the decoder's U4 (k3, 32->64 at 256x256) and tail (k7, 64->3);
+// zero_same is the core of the input gradient (dx = reflect-fold of the full
+// correlation with the rotated kernel; ops/starved_conv.py applies the fold's
+// border strips): U4 dx (64->32 k3), tail dx (3->64 k7) and the encoder
+// head's dx (64->3 k7). zero (full) is the fold's oracle, kept for tests.
+// Like the TPU kernel, it resolves the halo in the loader, so no padded copy
+// of the input is ever written to device memory: in reflect mode row and
+// column -1 read 1, row H reads H-2 (no edge repeat), as _row_specs /
+// _padded_row do; in the zero modes a halo element outside the image is 0.
 //
 // What bounds it: U4 at batch 4 is 9.7 GFLOP over 50 MB of bf16 input and
 // output (~190 flop/byte), the tail 4.9 GFLOP over 35 MB (~140 flop/byte).
@@ -20,10 +30,10 @@
 // tile for CO_T output channels of one image; each thread owns kRows = 4
 // output rows of one column, CO_T * 4 f32 accumulators in registers. Per chunk
 // of kChunk input channels the block stages the (32+k-1)^2 input tile with its
-// reflected halo, and the chunk's weights, in shared memory as f32. Each
-// (channel, tap) step then loads 4 input values and CO_T broadcast weights
-// for 4 * CO_T FMAs. Output channels past cout and input channels past cin
-// are zero-filled in shared memory and never stored.
+// halo, and the chunk's weights, in shared memory as f32. Each (channel, tap)
+// step then loads 4 input values and CO_T broadcast weights for 4 * CO_T
+// FMAs. Output channels past cout and input channels past cin are zero-filled
+// in shared memory and never stored.
 
 #include <climits>
 
@@ -39,6 +49,11 @@ constexpr int kChunk = 4;      // input channels staged per step
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
+// Padding modes shared with the Python wrapper (ops/starved_conv.py).
+constexpr int kReflect = 0;
+constexpr int kZeroSame = 1;
+constexpr int kZeroFull = 2;
+
 // Reflect without edge repeat (-1 -> 1, n -> n - 2), valid for a halo
 // narrower than the image; rows and columns of a tile that lie past the
 // image only feed outputs that are never stored, so clamp them.
@@ -50,9 +65,9 @@ __device__ __forceinline__ int reflect_index(int i, int n) {
 
 template <typename T, int CO_T>
 __global__ void __launch_bounds__(kTileW * kThreadsY)
-    reflect_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                        T* __restrict__ y, int cin, int cout, int h, int wd,
-                        int k, int tiles_w) {
+    conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                T* __restrict__ y, int cin, int cout, int h, int wd,
+                int out_h, int out_w, int k, int pad, int mode, int tiles_w) {
   extern __shared__ float smem[];
   const int span_w = kTileW + k - 1;
   const int span_h = kTileH + k - 1;
@@ -61,7 +76,6 @@ __global__ void __launch_bounds__(kTileW * kThreadsY)
   float* s_in = smem;                         // [kChunk][span_h][span_w]
   float* s_w = smem + kChunk * tile_elems;    // [kChunk][k*k][CO_T]
 
-  const int p = k / 2;
   const int oh0 = (blockIdx.x / tiles_w) * kTileH;
   const int ow0 = (blockIdx.x % tiles_w) * kTileW;
   const int co0 = blockIdx.y * CO_T;
@@ -71,6 +85,7 @@ __global__ void __launch_bounds__(kTileW * kThreadsY)
   const int tid = ty * kTileW + tx;
   const int nthreads = kTileW * kThreadsY;
   const long long plane = (long long)h * wd;
+  const long long out_plane = (long long)out_h * out_w;
   const T* xn = x + (long long)n * cin * plane;
 
   float acc[kRows][CO_T];
@@ -88,9 +103,17 @@ __global__ void __launch_bounds__(kTileW * kThreadsY)
       const int j = rem - i * span_w;
       float v = 0.f;
       if (ci0 + c < cin) {
-        const int row = reflect_index(oh0 - p + i, h);
-        const int col = reflect_index(ow0 - p + j, wd);
-        v = vct::load_f(xn, (long long)(ci0 + c) * plane + (long long)row * wd + col);
+        int row = oh0 - pad + i;
+        int col = ow0 - pad + j;
+        bool inside = true;
+        if (mode == kReflect) {
+          row = reflect_index(row, h);
+          col = reflect_index(col, wd);
+        } else {
+          inside = row >= 0 && row < h && col >= 0 && col < wd;
+        }
+        if (inside)
+          v = vct::load_f(xn, (long long)(ci0 + c) * plane + (long long)row * wd + col);
       }
       s_in[e] = v;
     }
@@ -126,15 +149,16 @@ __global__ void __launch_bounds__(kTileW * kThreadsY)
   }
 
   const int ow = ow0 + tx;
-  if (ow >= wd) return;
+  if (ow >= out_w) return;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int oh = oh0 + ty * kRows + r;
-    if (oh >= h) continue;
+    if (oh >= out_h) continue;
 #pragma unroll
     for (int co = 0; co < CO_T; ++co) {
       if (co0 + co < cout)
-        vct::store_f(y, ((long long)n * cout + co0 + co) * plane + (long long)oh * wd + ow,
+        vct::store_f(y, ((long long)n * cout + co0 + co) * out_plane +
+                            (long long)oh * out_w + ow,
                      acc[r][co]);
     }
   }
@@ -142,52 +166,63 @@ __global__ void __launch_bounds__(kTileW * kThreadsY)
 
 template <typename T, int CO_T>
 cudaError_t launch(const void* x, const void* w, void* y, int n, int cin,
-                   int cout, int h, int wd, int k, cudaStream_t stream) {
+                   int cout, int h, int wd, int k, int mode,
+                   cudaStream_t stream) {
+  const int pad = mode == kZeroFull ? k - 1 : k / 2;
+  const int out_h = h + 2 * pad - (k - 1);
+  const int out_w = wd + 2 * pad - (k - 1);
   const size_t smem =
       sizeof(float) * ((size_t)kChunk * (kTileH + k - 1) * (kTileW + k - 1) +
                        (size_t)kChunk * k * k * CO_T);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > kDefaultSmem) {
     const cudaError_t e = cudaFuncSetAttribute(
-        reflect_conv_kernel<T, CO_T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        conv_kernel<T, CO_T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const int tiles_w = (wd + kTileW - 1) / kTileW;
-  const int tiles_h = (h + kTileH - 1) / kTileH;
+  const int tiles_w = (out_w + kTileW - 1) / kTileW;
+  const int tiles_h = (out_h + kTileH - 1) / kTileH;
   const dim3 grid(tiles_w * tiles_h, (cout + CO_T - 1) / CO_T, n);
   const dim3 block(kTileW, kThreadsY);
-  reflect_conv_kernel<T, CO_T><<<grid, block, smem, stream>>>(
+  conv_kernel<T, CO_T><<<grid, block, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      cin, cout, h, wd, k, tiles_w);
+      cin, cout, h, wd, out_h, out_w, k, pad, mode, tiles_w);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* x, const void* w, void* y, int n, int cin,
-                     int cout, int h, int wd, int k, cudaStream_t stream) {
-  if (cout <= 4) return launch<T, 4>(x, w, y, n, cin, cout, h, wd, k, stream);
-  if (cout <= 8) return launch<T, 8>(x, w, y, n, cin, cout, h, wd, k, stream);
-  return launch<T, 16>(x, w, y, n, cin, cout, h, wd, k, stream);
+                     int cout, int h, int wd, int k, int mode,
+                     cudaStream_t stream) {
+  if (cout <= 4)
+    return launch<T, 4>(x, w, y, n, cin, cout, h, wd, k, mode, stream);
+  if (cout <= 8)
+    return launch<T, 8>(x, w, y, n, cin, cout, h, wd, k, mode, stream);
+  return launch<T, 16>(x, w, y, n, cin, cout, h, wd, k, mode, stream);
 }
 
 }  // namespace
 
 // x: contiguous (n, cin, h, wd); w: contiguous (cout, cin, k, k) of the same
-// type; y: contiguous (n, cout, h, wd). dtype: vct::kFloat32 or
-// vct::kBFloat16. Requires odd k with k / 2 < min(h, wd) (reflect padding).
-// Returns the cudaError_t of the launch (0 = success).
-extern "C" int vct_reflect_conv(const void* x, const void* w, void* y, int n,
+// type; y: contiguous (n, cout, out_h, out_w), out = in for modes 0 and 1 and
+// in + k - 1 for mode 2. mode: 0 reflect, 1 zero_same, 2 zero (full). dtype:
+// vct::kFloat32 or vct::kBFloat16. Requires odd k, and k / 2 < min(h, wd) in
+// reflect mode. Returns the cudaError_t of the launch (0 = success).
+extern "C" int vct_starved_conv(const void* x, const void* w, void* y, int n,
                                 int cin, int cout, int h, int wd, int k,
-                                int dtype, void* stream) {
+                                int mode, int dtype, void* stream) {
   if (n <= 0 || n > 65535 || cin <= 0 || cout <= 0 || h <= 0 || wd <= 0 ||
-      k <= 0 || k % 2 == 0 || k / 2 >= h || k / 2 >= wd ||
-      (long long)((wd + kTileW - 1) / kTileW) * ((h + kTileH - 1) / kTileH) > INT_MAX)
+      k <= 0 || k % 2 == 0 || mode < kReflect || mode > kZeroFull ||
+      (mode == kReflect && (k / 2 >= h || k / 2 >= wd)) ||
+      (long long)((wd + k - 1 + kTileW - 1) / kTileW) *
+              ((h + k - 1 + kTileH - 1) / kTileH) > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == vct::kFloat32)
-    return (int)dispatch<float>(x, w, y, n, cin, cout, h, wd, k, s);
+    return (int)dispatch<float>(x, w, y, n, cin, cout, h, wd, k, mode, s);
   if (dtype == vct::kBFloat16)
-    return (int)dispatch<__nv_bfloat16>(x, w, y, n, cin, cout, h, wd, k, s);
+    return (int)dispatch<__nv_bfloat16>(x, w, y, n, cin, cout, h, wd, k, mode,
+                                        s);
   return (int)cudaErrorInvalidValue;
 }

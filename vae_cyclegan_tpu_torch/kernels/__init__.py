@@ -10,8 +10,8 @@ when this module is imported: the CPU tests import every module, and the CPU
 has no ``nvcc``.
 
 The wrappers that launch the kernels live next to their plain PyTorch
-versions: ``ops.instance_norm.in_act_cuda`` and
-``ops.starved_conv.reflect_conv_cuda``.
+versions: ``ops.instance_norm.in_act_cuda``, and
+``ops.starved_conv.reflect_conv_cuda``, ``zero_conv_cuda`` and ``dw_cuda``.
 """
 
 from __future__ import annotations
@@ -35,12 +35,18 @@ NVCC_FLAGS = (
 )
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> (return type, argument types)
 _SIGNATURES = {
     # (x, y, planes, hw, dtype, act, act_norm, eps, stream)
-    "vct_in_act": [_P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
-    # (x, w, y, n, cin, cout, h, w, k, dtype, stream)
-    "vct_reflect_conv": [_P, _P, _P] + [ctypes.c_int] * 7 + [_P],
+    "vct_in_act": (_I, [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I,
+                        _I, ctypes.c_float, _P]),
+    # (x, w, y, n, cin, cout, h, w, k, mode, dtype, stream)
+    "vct_starved_conv": (_I, [_P, _P, _P] + [_I] * 8 + [_P]),
+    # (n, cin, cout, h, w, k) -> floats of scratch, or -1
+    "vct_dw_scratch_floats": (ctypes.c_longlong, [_I] * 6),
+    # (x, g, dw, scratch, n, cin, cout, h, w, k, dtype, stream)
+    "vct_starved_dw": (_I, [_P] * 4 + [_I] * 7 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -107,10 +113,10 @@ def load(build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build(build_dir)))
-            for name, argtypes in _SIGNATURES.items():
+            for name, (restype, argtypes) in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = restype
             _lib = lib
         return _lib
 
@@ -135,8 +141,13 @@ def record_sites() -> Iterator[List[Site]]:
     """Collect ``(kind, shape, dtype, k, cin, cout, act, order)`` for every
     call whose dispatch rule picks a kernel while the block is active,
     whatever the tensor's device (``meta`` included, where the plain
-    version then runs). ``kind`` is ``"in_act"`` or ``"starved_conv"``;
-    ``shape`` is the NCHW input shape."""
+    version then runs). ``kind`` is ``"in_act"``, ``"starved_conv"`` (the
+    reflect forward), ``"starved_conv_dx"`` (the zero_same core of the
+    input gradient) or ``"starved_conv_dw"`` (the weight gradient).
+    ``shape`` is the NCHW shape of the kernel's first input (x, or for dx
+    the incoming gradient); k, cin and cout are those of the conv the
+    kernel computes (for dx, the rotated one: cin and cout swap; for dw,
+    the forward's)."""
     sites: List[Site] = []
     _recorders.append(sites)
     try:

@@ -1,15 +1,17 @@
-"""Networks of the generator (counterparts of
-``vae_cyclegan_tpu/models/networks.py``), NCHW. Shapes at image_size=256:
+"""Networks (counterparts of ``vae_cyclegan_tpu/models/networks.py``), NCHW.
+Shapes at image_size=256:
 
-  Encoder:     (B, 3, 256, 256)  -> (B, 1024, 16, 16)
-  Decoder:     (B, 1024, 16, 16) -> (B, 3, 256, 256)   [unbounded output]
-  VarEncBlock: (B, 1024, 16, 16) -> z/mu/logvar (B, latent_dim, 16, 16)
-  VarDecBlock: (B, latent_dim, 16, 16) -> (B, 1024, 16, 16)
+  Encoder:       (B, 3, 256, 256)  -> (B, 1024, 16, 16)
+  Decoder:       (B, 1024, 16, 16) -> (B, 3, 256, 256)   [unbounded output]
+  VarEncBlock:   (B, 1024, 16, 16) -> z/mu/logvar (B, latent_dim, 16, 16)
+  VarDecBlock:   (B, latent_dim, 16, 16) -> (B, 1024, 16, 16)
+  Discriminator: (B, 3, 256, 256)  -> (B,)  one scalar per image (a global
+                 discriminator whose final kernel covers the whole 16x16 map)
 
 Submodule names follow the reference's torch modules (``model.0``,
-``muConv``, ``logvarConv.1``, ...), so ``state_dict`` keys match the keys
-``vae_cyclegan_tpu/utils/torch_import.py`` maps. SpectralConv and the
-Discriminator come with the training slice.
+``muConv``, ``logvarConv.1``, ``model.4.weight_orig``, ...), so
+``state_dict`` keys match the keys ``vae_cyclegan_tpu/utils/torch_import.py``
+maps.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from vae_cyclegan_tpu_torch.models.blocks import (
     CaSb,
@@ -27,6 +30,7 @@ from vae_cyclegan_tpu_torch.models.blocks import (
     SConv,
     UBlock,
 )
+from vae_cyclegan_tpu_torch.ops import kaiming_normal_fan_out, spectral_normalize
 
 
 class Encoder(nn.Module):
@@ -152,3 +156,82 @@ class VariationalAutoencoderNet(nn.Module):
         z, mu, logvar = self.variational_encoder_block(encoded, eps, generator)
         Gx = self.decoder(self.variational_decoder_block(z))
         return Gx, mu, logvar
+
+
+def _unit_normal(n: int, generator: torch.Generator) -> torch.Tensor:
+    g = torch.randn(n, generator=generator, dtype=torch.float32)
+    return g / (torch.linalg.vector_norm(g) + 1e-12)
+
+
+class SpectralConv(nn.Module):
+    """VALID conv whose weight is spectrally normalized (the reference's
+    ``spectral_norm(nn.Conv2d(512, 1, 16))``), with torch's names: the
+    ``bias`` and ``weight_orig`` parameters (in that order, as
+    ``spectral_norm`` leaves them) and the ``weight_u`` (cout,) and
+    ``weight_v`` (cin * k * k, over (I, kH, kW)) buffers.
+
+    A training call (``update_stats=True``) runs one power iteration and
+    replaces the buffers with the new vectors as fresh tensors, so the
+    spectral state threads through the calls in call order; an evaluation
+    call reads them."""
+
+    def __init__(self, cin: int, features: int, kernel_size: int,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.weight_orig = nn.Parameter(torch.empty(
+            features, cin, kernel_size, kernel_size, device=device))
+        self.register_buffer("weight_u", torch.empty(features, device=device))
+        self.register_buffer("weight_v", torch.empty(
+            cin * kernel_size * kernel_size, device=device))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Kaiming-normal fan_out weight, zero bias, unit-normal u and v,
+        drawn from `generator` in that order."""
+        self.weight_orig.copy_(kaiming_normal_fan_out(self.weight_orig.shape,
+                                                      generator))
+        self.bias.zero_()
+        self.weight_u.copy_(_unit_normal(self.weight_u.numel(), generator))
+        self.weight_v.copy_(_unit_normal(self.weight_v.numel(), generator))
+
+    def forward(self, x: torch.Tensor,
+                update_stats: bool = False) -> torch.Tensor:
+        w_sn, u, v = spectral_normalize(self.weight_orig, self.weight_u,
+                                        self.weight_v, update_stats)
+        if update_stats:
+            self.weight_u, self.weight_v = u, v
+        dtype = self.dtype or x.dtype
+        y = F.conv2d(x.to(dtype), w_sn.to(dtype))
+        return y + self.bias.to(dtype)[:, None, None]
+
+
+class Discriminator(nn.Module):
+    """4x CaSb(k4, s2, reflect pad 1, LeakyReLU) 3->w->2w->4w->8w (the first
+    without norm) -> SpectralConv(8w->1, k=final_kernel) -> (B,).
+
+    ``final_kernel`` is ``image_size // 16``. Every conv weight is drawn
+    Kaiming-normal with the ReLU gain, as the composites' re-init does
+    (CycleVAEGAN among them)."""
+
+    def __init__(self, final_kernel: int = 16, base_width: int = 64,
+                 dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        w = base_width
+        common = dict(kernel_size=4, stride=2, padding=1,
+                      activation="LeakyReLU", dtype=dtype, device=device)
+        self.model = nn.Sequential(
+            CaSb(3, w, use_norm=False, **common),
+            CaSb(w, w * 2, **common),
+            CaSb(w * 2, w * 4, **common),
+            CaSb(w * 4, w * 8, **common),
+            SpectralConv(w * 8, 1, final_kernel, dtype, device),
+        )
+
+    def forward(self, x: torch.Tensor,
+                update_stats: bool = False) -> torch.Tensor:
+        for block in self.model[:4]:
+            x = block(x)
+        x = self.model[4](x, update_stats)
+        return x.reshape(x.shape[0])

@@ -1,12 +1,13 @@
 """Architecture registry: string name -> Task factory, with the ten names
-of the JAX package. Only the flagship serves in this port so far; the others
-raise NotImplementedError naming their ROADMAP.md queue item."""
+of the JAX package. Only the flagship is ported so far (serving and
+training); the others raise NotImplementedError naming their ROADMAP.md
+queue item."""
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Type
 
-from vae_cyclegan_tpu_torch.config import ModelConfig
+from vae_cyclegan_tpu_torch.config import LossConfig, ModelConfig, OptimConfig
 from vae_cyclegan_tpu_torch.models.tasks.base import Task
 from vae_cyclegan_tpu_torch.models.tasks.cyclegan import CycleVAEGANTask
 
@@ -25,6 +26,8 @@ ARCHITECTURES: Dict[str, Optional[Type[Task]]] = {
 
 
 def create_task(architecture: str, model: Optional[ModelConfig] = None,
+                optim: Optional[OptimConfig] = None,
+                loss: Optional[LossConfig] = None, paired: bool = True,
                 device="cpu") -> Task:
     if architecture not in ARCHITECTURES:
         raise ValueError(f"Unknown architecture: {architecture}")
@@ -33,4 +36,5 @@ def create_task(architecture: str, model: Optional[ModelConfig] = None,
         raise NotImplementedError(
             f"architecture {architecture!r} is not ported yet: ROADMAP.md, "
             "'Modules to port', item 3 (the other nine architectures)")
-    return cls(model=model, device=device)
+    return cls(model=model, optim=optim, loss=loss, paired=paired,
+               device=device)

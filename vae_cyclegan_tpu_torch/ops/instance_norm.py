@@ -10,9 +10,19 @@ Dispatch follows the JAX package's rule (``vae_cyclegan_tpu/ops/
 instance_norm.py::instance_norm_act``): a slab whose per-sample f32 size
 H*W*C*4 is at most 1 MB takes the kernel (``csrc/in_act.cu``, the port of
 ``_pallas_in_act``); larger slabs take the plain version, as JAX sends them
-to XLA. On the serving path the kernel runs at the five 16x16x1024 sites.
-A CUDA tensor that the rule selects launches the kernel or raises; CPU and
-``meta`` tensors take the plain version.
+to XLA. In a generator forward the kernel runs at the five 16x16x1024 sites,
+in a discriminator forward at the 32x32x256 and 16x16x512 sites. A CUDA
+tensor that the rule selects launches the kernel or raises; CPU and ``meta``
+tensors take the plain version.
+
+Both paths are ``torch.autograd.Function``s whose backward is plain torch in
+f32, returning x's dtype, as the JAX package's custom VJPs are jnp:
+``_InActFused`` (the kernel sites, ``_fused_tpu``) saves x and recomputes
+the statistics (``_fused_tpu_bwd``); ``_InActPlain`` (the big slabs,
+``_fused_xla``) saves (x, mean, rsqrt) and takes the analytic form
+(``_fused_xla_bwd``). Both forwards keep the centered variance of the
+serving path and of the JAX package's CPU path; on the TPU, JAX's training
+forward of the big slabs uses the single-pass E[x^2] - mean^2 (``_stats``).
 """
 
 from __future__ import annotations
@@ -40,13 +50,34 @@ _ACT_CODES = {"relu": 0, "leaky_relu": 1, "tanh": 2, "sigmoid": 3,
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _stats(h: torch.Tensor, eps: float):
+    """Per-(n, c) mean and rsqrt(centered biased variance + eps) of an f32
+    NCHW tensor."""
+    mu = h.mean(dim=(2, 3), keepdim=True)
+    var = (h - mu).square().mean(dim=(2, 3), keepdim=True)
+    return mu, torch.rsqrt(var + eps)
+
+
 def instance_norm(x: torch.Tensor, eps: float = EPS) -> torch.Tensor:
     """Plain InstanceNorm of an NCHW tensor (stats per (n, c) in f32,
     centered biased variance), returned in x's dtype."""
     xf = x.float()
-    mu = xf.mean(dim=(2, 3), keepdim=True)
-    var = (xf - mu).square().mean(dim=(2, 3), keepdim=True)
-    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    mu, r = _stats(xf, eps)
+    return ((xf - mu) * r).to(x.dtype)
+
+
+def _fused_with_stats(x: torch.Tensor, act: str, order: str, eps: float):
+    """(y, mean, rsqrt) of the fused op, y as ``fused_reference``."""
+    f = ACTS[act]
+    if order == "norm_act":
+        xf = x.float()
+        mu, r = _stats(xf, eps)
+        return f(((xf - mu) * r).to(x.dtype).float()).to(x.dtype), mu, r
+    if order == "act_norm":
+        h = f(x.float()).to(x.dtype).float()
+        mu, r = _stats(h, eps)
+        return ((h - mu) * r).to(x.dtype), mu, r
+    raise ValueError(f"unknown order {order}")
 
 
 def fused_reference(x: torch.Tensor, act: str, order: str,
@@ -54,12 +85,71 @@ def fused_reference(x: torch.Tensor, act: str, order: str,
     """Plain version of the fused op (``_fused_reference`` of the JAX
     package, rounding to x's dtype between the activation and the norm
     the same way)."""
-    f = ACTS[act]
+    return _fused_with_stats(x, act, order, eps)[0]
+
+
+def _act_and_grad(act: str, x: torch.Tensor):
+    """The activation and its derivative (``_act_and_grad``)."""
+    if act == "relu":
+        return torch.relu(x), (x > 0).to(x.dtype)
+    if act == "leaky_relu":
+        pos = x >= 0
+        return (torch.where(pos, x, 0.2 * x),
+                torch.where(pos, 1.0, 0.2).to(x.dtype))
+    if act == "tanh":
+        t = torch.tanh(x)
+        return t, 1.0 - t * t
+    if act == "sigmoid":
+        s = torch.sigmoid(x)
+        return s, s * (1.0 - s)
+    if act == "identity":
+        return x, torch.ones_like(x)
+    raise ValueError(act)
+
+
+def _mean(t: torch.Tensor) -> torch.Tensor:
+    return t.mean(dim=(2, 3), keepdim=True)
+
+
+def _in_vjp(h: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
+    """VJP of (h - mean(h)) * rsqrt(var(h) + eps) per (n, c) plane
+    (``_in_vjp``)."""
+    mu, r = _stats(h, eps)
+    h_hat = (h - mu) * r
+    return r * (g - _mean(g) - h_hat * _mean(g * h_hat))
+
+
+def fused_backward(x: torch.Tensor, g: torch.Tensor, act: str, order: str,
+                   eps: float = EPS) -> torch.Tensor:
+    """dx of the fused op from x alone, in f32, returned in x's dtype
+    (``_fused_tpu_bwd``)."""
+    xf, gf = x.float(), g.float()
     if order == "norm_act":
-        return f(instance_norm(x, eps).float()).to(x.dtype)
-    if order == "act_norm":
-        return instance_norm(f(x.float()).to(x.dtype), eps)
-    raise ValueError(f"unknown order {order}")
+        mu, r = _stats(xf, eps)
+        _, dact = _act_and_grad(act, (xf - mu) * r)
+        dx = _in_vjp(xf, gf * dact, eps)
+    else:
+        h, dact = _act_and_grad(act, xf)
+        dx = _in_vjp(h, gf, eps) * dact
+    return dx.to(x.dtype)
+
+
+def fused_backward_from_stats(x: torch.Tensor, mu: torch.Tensor,
+                              r: torch.Tensor, g: torch.Tensor, act: str,
+                              order: str) -> torch.Tensor:
+    """dx of the fused op from x and the forward's f32 (mean, rsqrt),
+    returned in x's dtype (``_fused_xla_bwd``)."""
+    xf, gf = x.float(), g.float()
+    if order == "norm_act":
+        x_hat = (xf - mu) * r
+        _, dact = _act_and_grad(act, x_hat)
+        dh = gf * dact
+        dx = r * (dh - _mean(dh) - x_hat * _mean(dh * x_hat))
+    else:
+        h, dact = _act_and_grad(act, xf)
+        h_hat = (h - mu) * r
+        dx = r * (gf - _mean(gf) - h_hat * _mean(gf * h_hat)) * dact
+    return dx.to(x.dtype)
 
 
 def slab_fits(shape) -> bool:
@@ -72,7 +162,7 @@ def slab_fits(shape) -> bool:
 def in_act_cuda(x: torch.Tensor, act: str, order: str,
                 eps: float = EPS) -> torch.Tensor:
     """Launch the IN+act kernel on a contiguous NCHW CUDA tensor (float32 or
-    bfloat16). Forward only: raises under autograd."""
+    bfloat16). Not differentiable itself: raises under autograd."""
     if x.device.type != "cuda":
         raise ValueError(f"in_act kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in DTYPE_CODES:
@@ -84,8 +174,8 @@ def in_act_cuda(x: torch.Tensor, act: str, order: str,
     if act not in _ACT_CODES or order not in ORDERS:
         raise ValueError(f"unknown activation/order {act}/{order}")
     if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError("in_act kernel is forward-only; run under "
-                           "torch.no_grad() (its backward comes with training)")
+        raise RuntimeError("in_act kernel is not differentiable itself; call "
+                           "instance_norm_act for the op with its gradient")
     n, c, h, w = x.shape
     lib = kernels.load()
     y = torch.empty_like(x)
@@ -102,16 +192,50 @@ def in_act_cuda(x: torch.Tensor, act: str, order: str,
 in_act_cuda.launches = 0
 
 
+class _InActFused(torch.autograd.Function):
+    """The kernel sites: kernel forward (plain off the card), saves x."""
+
+    @staticmethod
+    def forward(ctx, x, act, order, eps):
+        ctx.save_for_backward(x)
+        ctx.cfg = (act, order, eps)
+        if x.device.type == "cuda":
+            return in_act_cuda(x.contiguous(), act, order, eps)
+        return fused_reference(x, act, order, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return fused_backward(x, g, *ctx.cfg), None, None, None
+
+
+class _InActPlain(torch.autograd.Function):
+    """The big slabs: plain forward, saves (x, mean, rsqrt)."""
+
+    @staticmethod
+    def forward(ctx, x, act, order, eps):
+        y, mu, r = _fused_with_stats(x, act, order, eps)
+        ctx.save_for_backward(x, mu, r)
+        ctx.cfg = (act, order)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mu, r = ctx.saved_tensors
+        return (fused_backward_from_stats(x, mu, r, g, *ctx.cfg), None, None,
+                None)
+
+
 def instance_norm_act(x: torch.Tensor, *, act: str = "relu",
                       order: str = "norm_act",
                       eps: float = EPS) -> torch.Tensor:
-    """Fused InstanceNorm+activation of an NCHW tensor, in either order."""
+    """Fused InstanceNorm+activation of an NCHW tensor, in either order,
+    differentiable."""
     if act not in ACTS:
         raise NotImplementedError(f"Activation not implemented: {act}")
     if order not in ORDERS:
         raise ValueError(f"unknown order {order}")
     if slab_fits(x.shape):
         kernels.note_site("in_act", x.shape, x.dtype, act=act, order=order)
-        if x.device.type == "cuda":
-            return in_act_cuda(x.contiguous(), act, order, eps)
-    return fused_reference(x, act, order, eps)
+        return _InActFused.apply(x, act, order, eps)
+    return _InActPlain.apply(x, act, order, eps)
