@@ -11,9 +11,11 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               chiprun_out/build.log)
   3. kernels: each hand-written kernel against its plain PyTorch version on
               the card, at the serving and training paths' shapes and at
-              edge shapes: IN+act, the conv in its three padding modes, the
-              weight gradient, and the conv's and the norm's autograd
-              Functions against autograd of their plain versions
+              edge shapes: IN+act (one-pass and two-pass; the two-pass
+              kernel also repeats bit for bit), the conv in its three
+              padding modes, the weight gradient, and the conv's and the
+              norm's autograd Functions against autograd of their plain
+              versions
   4. slice:   the cyclevaegan generator at full width (256x256, base 64,
               latent 64, bf16, seeded random weights) serves requests at
               batch 1, 4 and 16 through run_inference; every generator
@@ -24,20 +26,33 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
   5. train:   the full-width bf16 task takes three train_steps at batch 4;
               each step must launch IN+act 46 times, the reflect conv 12, the
               zero_same conv 14 and the weight gradient 18 times; losses
-              finite, no skipped update, every parameter moved; then one f32
-              train_step at batch 1 on the card against the port's CPU step
-              from the same weights and noise (metrics, spectral vectors,
-              parameters within one Adam step), and eval_step
-  6. times:   kernel vs plain (CUDA events), request latency per batch size
-              and training step time at batch 4 and 24 (host clock, median),
-              device busy time and idle share, peak device memory, profiler
-              summaries (a device time the profiler did not record in three
-              sessions is printed as not measured and left out of the
-              summary; the CUDA-event times are always taken)
+              finite, no skipped update, every parameter moved; eval_step
+              and generate; then one f32 train_step at batch 1 on the card
+              against the port's CPU step from the same weights and noise
+              (metrics, spectral vectors, parameters within one Adam step)
+  6. tiled:   the same under instance_norm="tiled": each step launches the
+              two-pass IN kernel 96 times and the one-pass one never, the
+              convs as in 5; the f32 step against the CPU's; step times
+  7. families: the nine other architectures at full width, bf16, batch 4:
+              two train_steps each (launches per step as the CPU site tests
+              derive from the JAX TPU trace), eval_step, generate, a step
+              time; and one f32 step each on the card against the port's CPU
+              step at image 64, base 16
+  8. times:   kernel vs plain vs the library call (CUDA events), each
+              kernel's bound (bytes over HBM bandwidth or operations over
+              the peak rate, whichever is larger), the two IN kernels and
+              the plain versions at every tiled site, request latency per
+              batch size and training step time at batch 4 and 24 (host
+              clock, median), device busy time and idle share, peak device
+              memory, profiler summaries (a device time the profiler did not
+              record in three profiler runs is printed as not measured and left
+              out of the summary; the CUDA-event times are always taken)
 
-Any failed check raises, and the script exits non-zero without printing its
-last line, ``{"ok": true, "device": {...}}``. The line before it is the
-``{"kernels": [...]}`` summary.
+Each main path (the serving requests, each training run) is driven with
+every launch count set to 0 just before it and read just after it. Any
+failed check raises, and the script exits non-zero without printing its last
+line, ``{"ok": true, "device": {...}}``. The line before it names the card,
+and the one before that is the ``{"kernels": [...]}`` summary.
 """
 
 from __future__ import annotations
@@ -50,18 +65,21 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vae_cyclegan_tpu_torch import kernels
 from vae_cyclegan_tpu_torch.config import ModelConfig
 from vae_cyclegan_tpu_torch.inference import run_inference
-from vae_cyclegan_tpu_torch.models.tasks import create_task
-from vae_cyclegan_tpu_torch.models.tasks.cyclegan import GEN_PASSES
+from vae_cyclegan_tpu_torch.models.tasks import ARCHITECTURES, create_task
 from vae_cyclegan_tpu_torch.ops.instance_norm import (
     ORDERS,
     fused_reference,
     in_act_cuda,
+    in_act_tiled_cuda,
     instance_norm_act,
+    tiled_reference,
 )
+from vae_cyclegan_tpu_torch.ops.padding import reflect_pad
 from vae_cyclegan_tpu_torch.ops.reflect_conv import reflect_conv
 from vae_cyclegan_tpu_torch.ops.starved_conv import (
     dw_cuda,
@@ -107,14 +125,72 @@ DEV = torch.device("cuda")
 # the training path's starved convs at 256x256: (name, cin, cout, k)
 TRAIN_CONVS = [("head", 3, BASE, 7), ("U4", BASE // 2, BASE, 3),
                ("tail", BASE, 3, 7)]
-# launches per train_step, (in_act, reflect conv, zero_same conv, dw):
-# 6 generator passes x 5 IN sites + 8 discriminator passes x 2; U4 and tail
-# forward in each generator pass; dx of U4 and the tail in every pass and of
-# the head where its input is a generator output (F(Gx), G(Fy)); dw of the
-# three convs in every pass (tests/test_torch_train.py holds the same counts
-# against the JAX package's TPU trace)
-STEP_LAUNCHES = (46, 12, 14, 18)
+# the kernels' wrappers, each with its launch count, and their names in the
+# summary line
+WRAPPERS = (in_act_cuda, in_act_tiled_cuda, reflect_conv_cuda, zero_conv_cuda,
+            dw_cuda)
+KERNEL_NAMES = ("in_act", "in_act_tiled", "starved_conv",
+                "starved_conv_zero_same", "starved_conv_dw")
+# launches per train_step in WRAPPERS order. cyclevaegan: 6 generator passes
+# x 5 IN sites + 8 discriminator passes x 2; U4 and tail forward in each
+# generator pass; dx of U4 and the tail in every pass and of the head where
+# its input is a generator output (F(Gx), G(Fy)); dw of the three convs in
+# every pass. Under "tiled" the two-pass kernel takes 12 of a generator
+# pass's 13 IN sites (not U4's) and a discriminator pass's 3. The CPU site
+# tests hold the same counts against the JAX package's TPU trace
+# (tests/test_torch_train.py, test_torch_tiled.py, test_torch_families_*.py)
+STEP_LAUNCHES = (46, 0, 12, 14, 18)
+TILED_STEP_LAUNCHES = (0, 96, 12, 14, 18)
+FAMILY_STEP_LAUNCHES = {
+    "autoencoder": (5, 0, 2, 2, 3), "vae": (5, 0, 2, 2, 3),
+    "doubleae": (10, 0, 4, 4, 6), "doublevae": (10, 0, 4, 4, 6),
+    "aegan": (18, 0, 4, 4, 6), "vaegan": (18, 0, 4, 4, 6),
+    "cycleae": (20, 0, 8, 10, 12), "cyclevae": (20, 0, 8, 10, 12),
+    "cycleaegan": (46, 0, 12, 14, 18),
+}
 TRAIN_BATCHES = (PATH_BATCH, 24)   # 24: bench.py's default batch
+# the two-pass IN kernel's sites at batch 4, (shape, act, order): the
+# generator's (CaSb head, D blocks, R block, U blocks) and the
+# discriminator's (its three normalized CaSb)
+TILED_SITES = [
+    ((PATH_BATCH, BASE, IMAGE, IMAGE), "relu", "norm_act"),
+    ((PATH_BATCH, 2 * BASE, IMAGE // 2, IMAGE // 2), "relu", "act_norm"),
+    ((PATH_BATCH, 4 * BASE, IMAGE // 4, IMAGE // 4), "relu", "act_norm"),
+    ((PATH_BATCH, 8 * BASE, IMAGE // 8, IMAGE // 8), "relu", "act_norm"),
+    ((PATH_BATCH, 16 * BASE, IMAGE // 16, IMAGE // 16), "relu", "act_norm"),
+    ((PATH_BATCH, 16 * BASE, IMAGE // 16, IMAGE // 16), "identity",
+     "act_norm"),
+    ((PATH_BATCH, 2 * BASE, IMAGE // 4, IMAGE // 4), "leaky_relu",
+     "norm_act"),
+    ((PATH_BATCH, 4 * BASE, IMAGE // 8, IMAGE // 8), "leaky_relu",
+     "norm_act"),
+    ((PATH_BATCH, 8 * BASE, IMAGE // 16, IMAGE // 16), "leaky_relu",
+     "norm_act"),
+]
+# planes that are not a multiple of the kernel's 4096-element chunk: 72x72
+# (a multiple of the 16-byte vector) and 75x67 (not even that)
+TILED_EDGES = [(2, 16, 72, 72), (2, 3, 75, 67)]
+# the RBlocks' identity sites, where F.instance_norm computes the same
+# function as the IN kernels
+IDENTITY_SITE = (PATH_BATCH, 16 * BASE, IMAGE // 16, IMAGE // 16)
+# the nine other architectures' f32 step on the card against the CPU's, at
+# (image, latent, base) and batch 2: at most this share of the parameter
+# elements may take the other Adam sign (the bounds of the CPU tests against
+# JAX, tests/test_torch_families_*.py; at random weights the generator
+# step's f32 gradient is chaotic, ROADMAP.md queue 3)
+FAMILY_F32_SIZE = (64, 16, 16)
+FAMILY_FLIPPED = {"autoencoder": 0.03, "vae": 0.01, "doubleae": 0.04,
+                  "doublevae": 0.01, "aegan": 0.02, "vaegan": 0.01,
+                  "cycleae": 0.03, "cyclevae": 0.25, "cycleaegan": 0.04}
+# the card's published peaks (NVIDIA's H100 SXM data sheet, dense, at
+# 700 W): HBM bandwidth, bf16 tensor-core and f32
+# CUDA-core rates, per millisecond. The IN kernels' arithmetic is f32 on the
+# CUDA cores; the convs' inputs are bf16, held to the bf16 tensor-core rate
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+PEAK_OPS_PER_MS = {"bf16": 989e12 / 1e3, "f32": 67e12 / 1e3}
+# IN+act per element: the activation, a sum, a square and its sum, then a
+# subtract and a multiply
+IN_OPS_PER_ELEMENT = 6
 # the f32 step on the card against the port's CPU step: every metric within
 # rtol 2e-3 (the forward's summation-order band, widened by exp(logvar) in
 # the KL), the spectral vectors within 1e-5 (power iterations on the same
@@ -203,22 +279,31 @@ def ms_text(ms, digits: int = 4) -> str:
     return "not measured" if ms is None else f"{ms:.{digits}f}"
 
 
-def kernel_vs_plain(kernel_fn, plain_fn, iters: int) -> dict:
-    """Per call, warmed up: the CUDA-event time of a loop of `iters` calls
-    (host launch cost included where the host is the slower side), timed
-    in the order plain, kernel, kernel, plain; then the device time, where
-    the profiler saw it."""
-    for fn in (plain_fn, kernel_fn):
+def time_calls(fns: dict, iters: int) -> dict:
+    """Per call, warmed up: the CUDA-event time of a loop of `iters` calls of
+    each named function (host launch cost included where the host is the
+    slower side), timed in turns, in the given order and then reversed, and
+    averaged over the two turns."""
+    for fn in fns.values():
         for _ in range(3):
             fn()
     torch.cuda.synchronize()
-    p1 = cuda_ms(plain_fn, iters)
-    k1 = cuda_ms(kernel_fn, iters)
-    k2 = cuda_ms(kernel_fn, iters)
-    p2 = cuda_ms(plain_fn, iters)
-    return {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-            "device_ms": profiled(kernel_fn, iters)[0],
-            "plain_device_ms": profiled(plain_fn, iters)[0]}
+    order = list(fns)
+    ms = dict.fromkeys(order, 0.0)
+    for name in order + order[::-1]:
+        ms[name] += cuda_ms(fns[name], iters) / 2
+    return ms
+
+
+def kernel_vs_plain(kernel_fn, plain_fn, library_fn, iters: int) -> dict:
+    """time_calls of the plain version, the kernel and the library call that
+    computes the same function; then the device times of the kernel and the
+    plain version, where the profiler saw them."""
+    t = time_calls({"plain_ms": plain_fn, "ms": kernel_fn,
+                    "library_ms": library_fn}, iters)
+    t["device_ms"] = profiled(kernel_fn, iters)[0]
+    t["plain_device_ms"] = profiled(plain_fn, iters)[0]
+    return t
 
 
 def measured(t: dict) -> dict:
@@ -227,12 +312,46 @@ def measured(t: dict) -> dict:
 
 
 def add_times(total: dict | None, t: dict) -> dict:
-    """Sums two kernel_vs_plain results key by key; a device time that was
-    not measured on either side stays not measured."""
+    """Sums two kernel_vs_plain results key by key; a time that was not
+    measured on either side stays not measured."""
     if total is None:
         return dict(t)
     return {key: None if total[key] is None or t[key] is None
             else total[key] + t[key] for key in t}
+
+
+def bound(nbytes: float, ops: float, rate: str) -> dict:
+    """The least time the card could take for work that must move `nbytes`
+    and do `ops` operations at the peak rate `rate`: the larger of the two
+    times, and which one it is."""
+    by_bytes = nbytes / HBM_BYTES_PER_MS
+    by_ops = ops / PEAK_OPS_PER_MS[rate]
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def in_act_bound(shape, dtype) -> dict:
+    """IN+act of one NCHW tensor: x read once, y written once."""
+    n = int(np.prod(shape))
+    size = torch.empty((), dtype=dtype).element_size()
+    return bound(2 * n * size, IN_OPS_PER_ELEMENT * n, "f32")
+
+
+def conv_work(x_shape, cout: int, k: int, out_hw, size: int,
+              out_size: int) -> tuple:
+    """(bytes, multiply-adds x 2) of a k x k conv from NCHW x to cout
+    channels over `out_hw` output positions: x and the weight read once, the
+    output written once."""
+    n, cin, h, w = x_shape
+    oh, ow = out_hw
+    nbytes = (n * cin * h * w * size + cout * cin * k * k * size
+              + n * cout * oh * ow * out_size)
+    return nbytes, 2.0 * n * oh * ow * cout * cin * k * k
+
+
+def sum_bounds(works, rate: str) -> dict:
+    """bound() of the summed (bytes, operations) of several calls."""
+    return bound(sum(w[0] for w in works), sum(w[1] for w in works), rate)
 
 
 # ---------------------------------------------------------------------------
@@ -387,9 +506,48 @@ def phase_train_kernels() -> dict:
     return errs
 
 
-def _task(dtype, device):
-    task = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT, BASE,
-                                                        dtype), device=device)
+def phase_tiled_kernels() -> dict:
+    """The two-pass IN kernel against tiled_reference at every tiled site of
+    the training path (batch 4, each with its activation and order) and at
+    the edge planes with every activation and order, in bf16 and f32; a
+    second launch must give the same bits. Then its autograd Function
+    (kernel forward, the centered backward) against autograd of
+    tiled_reference at a generator site."""
+    err = 0.0
+    cases = [(shape, act, order) for shape, act, order in TILED_SITES]
+    cases += [(shape, act, order) for shape in TILED_EDGES for act in ACTS
+              for order in ORDERS]
+    for i, (shape, act, order) in enumerate(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = randn(shape, 800 + i, dtype, 2.0) + 0.5
+            got = in_act_tiled_cuda(x, act, order)
+            label = f"in_act_tiled {shape} {str(dtype)[6:]} {act}/{order}"
+            err = max(err, compare(label, got,
+                                   tiled_reference(x, act, order)))
+            require(torch.equal(in_act_tiled_cuda(x, act, order), got),
+                    f"{label}: a second launch gave other bits")
+    say(f"in_act_tiled: {2 * len(cases)} cases, each repeated bit for bit")
+    shape = TILED_SITES[1][0]
+    for dtype in (torch.bfloat16, torch.float32):
+        for act, order in (("relu", "act_norm"), ("leaky_relu", "norm_act")):
+            x = randn(shape, 900, dtype, 2.0) + 0.5
+            gy = randn(shape, 901, dtype)
+            xa = x.clone().requires_grad_()
+            y = instance_norm_act(xa, act=act, order=order, mode="tiled")
+            (dx,) = torch.autograd.grad(y, xa, gy)
+            xb = x.clone().requires_grad_()
+            y_ref = tiled_reference(xb, act, order)
+            (dx_ref,) = torch.autograd.grad(y_ref, xb, gy)
+            label = f"tiled IN Function {shape} {str(dtype)[6:]} {act}/{order}"
+            compare(f"{label} y", y, y_ref)
+            compare(f"{label} dx", dx, dx_ref)
+    return {"in_act_tiled": err}
+
+
+def _task(dtype, device, name="cyclevaegan", instance_norm="auto",
+          size=(IMAGE, LATENT, BASE)):
+    task = create_task(name, model=ModelConfig(
+        *size, dtype, instance_norm=instance_norm), device=device)
     task.init(0)
     return task
 
@@ -444,18 +602,16 @@ def phase_slice() -> dict:
     torch.cuda.synchronize()
 
     # the main path: the counts cover exactly these requests
-    in_act_cuda.launches = 0
-    reflect_conv_cuda.launches = 0
+    _zero_counts()
     outs = []
     for seed, x in enumerate(requests):
-        before = (in_act_cuda.launches, reflect_conv_cuda.launches)
+        before = _counts()
         outs.append(run_inference(task, {"x": x}, seed=seed))
-        per = (in_act_cuda.launches - before[0],
-               reflect_conv_cuda.launches - before[1])
-        require(per == (5, 2), f"batch {x.shape[0]}: {per} launches of "
-                               "(in_act, starved_conv), expected (5, 2)")
-    launches = {"in_act": in_act_cuda.launches,
-                "starved_conv": reflect_conv_cuda.launches}
+        per = tuple(a - b for a, b in zip(_counts(), before))
+        require(per == (5, 0, 2, 0, 0),
+                f"batch {x.shape[0]}: {per} launches of {KERNEL_NAMES}, "
+                "expected 5 in_act and 2 starved_conv")
+    launches = {k: v for k, v in _launches().items() if v}
     say(f"slice: {len(requests)} requests (batch {BATCHES}), launches "
         f"{launches}: 5 in_act + 2 starved_conv per generator forward ok")
     for x, out in zip(requests, outs):
@@ -507,13 +663,16 @@ def _images(batch: int, seed: int) -> np.ndarray:
 
 
 def _counts() -> tuple:
-    return (in_act_cuda.launches, reflect_conv_cuda.launches,
-            zero_conv_cuda.launches, dw_cuda.launches)
+    return tuple(fn.launches for fn in WRAPPERS)
 
 
 def _zero_counts() -> None:
-    for fn in (in_act_cuda, reflect_conv_cuda, zero_conv_cuda, dw_cuda):
+    for fn in WRAPPERS:
         fn.launches = 0
+
+
+def _launches() -> dict:
+    return dict(zip(KERNEL_NAMES, _counts()))
 
 
 def _finite_metrics(metrics: dict) -> dict:
@@ -523,10 +682,14 @@ def _finite_metrics(metrics: dict) -> dict:
     return vals
 
 
-def phase_train() -> dict:
-    """The training path: three train_steps of the full-width bf16 task at
-    batch 4, launch counts per step, then eval_step."""
-    task = _task(torch.bfloat16, DEV)
+def train_path(name: str, instance_norm: str, want: tuple, steps: int,
+               label: str) -> dict:
+    """A training path: `steps` train_steps of the full-width bf16 task at
+    batch 4, with every launch count set to 0 just before them and read just
+    after; each step must launch `want` (WRAPPERS order), keep its losses
+    finite and skip no update, and every parameter tensor must move. Then
+    eval_step and generate."""
+    task = _task(torch.bfloat16, DEV, name, instance_norm)
     batch = {"x": torch.as_tensor(_images(PATH_BATCH, 10), device=DEV),
              "y": torch.as_tensor(_images(PATH_BATCH, 11), device=DEV)}
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -535,112 +698,111 @@ def phase_train() -> dict:
 
     # the main path: the counts cover exactly these steps
     _zero_counts()
-    for step in range(3):
+    for step in range(steps):
         before = _counts()
         vals = _finite_metrics(task.train_step(batch, generator=gen))
         per = tuple(a - b for a, b in zip(_counts(), before))
-        require(per == STEP_LAUNCHES,
-                f"step {step}: {per} launches of (in_act, reflect conv, "
-                f"zero_same conv, dw), expected {STEP_LAUNCHES}")
-        require(vals["nan_detected"] == 0.0, f"step {step} skipped an update")
-        say(f"train step {step} (bf16, batch {PATH_BATCH}): G_loss "
-            f"{vals['G_loss']:.4f}, D_loss {vals['D_loss']:.4f}, loss_kl "
-            f"{vals['loss_kl']:.2f}, nan_detected 0; launches {per} ok")
-    launches = dict(zip(("in_act", "starved_conv", "starved_conv_zero_same",
-                         "starved_conv_dw"), _counts()))
+        require(per == want, f"{label} step {step}: {per} launches of "
+                             f"{KERNEL_NAMES}, expected {want}")
+        require(vals["nan_detected"] == 0.0,
+                f"{label} step {step} skipped an update")
+        losses = ", ".join(f"{k} {vals[k]:.4f}" for k in
+                           ("G_loss", "D_loss", "loss_kl") if k in vals)
+        say(f"train {label} step {step} (bf16, batch {PATH_BATCH}): "
+            f"{losses}, nan_detected 0; launches {per} ok")
+    launches = _launches()
     stuck = [n for n, p in task.nets.named_parameters()
              if torch.equal(p, start[n])]
-    require(not stuck, f"parameters that did not move: {stuck}")
-    say(f"train: 3 steps, launches {launches}; all {len(start)} parameter "
-        f"tensors moved")
+    require(not stuck, f"{label}: parameters that did not move: {stuck}")
+    say(f"train {label}: {steps} steps, launches {launches}; all "
+        f"{len(start)} parameter tensors moved")
     metrics = task.eval_step(batch, generator=gen)
     _finite_metrics(metrics)
-    for key in ("Gx", "Fy"):
-        out = metrics[key]
+    images = {k: metrics[k] for k in ("Gx", "Fy") if k in metrics}
+    require(set(images) == ({"Gx", "Fy"} if task.has_fy else {"Gx"}),
+            f"{label} eval_step images {sorted(images)}")
+    images["generate"] = task.generate({"x": batch["x"]}, generator=gen)
+    for key, out in images.items():
         require(tuple(out.shape) == (PATH_BATCH, IMAGE, IMAGE, 3)
                 and bool(torch.isfinite(out).all()),
-                f"eval_step {key} {tuple(out.shape)} finite")
-    say(f"eval_step: G_loss {float(metrics['G_loss']):.4f}, Gx and Fy "
-        f"{tuple(metrics['Gx'].shape)} finite")
+                f"{label} {key} {tuple(out.shape)} finite")
+    say(f"{label} eval_step: G_loss {float(metrics['G_loss']):.4f}; "
+        f"{', '.join(images)} {(PATH_BATCH, IMAGE, IMAGE, 3)} finite")
     return {"task": task, "launches": launches}
 
 
-def phase_train_f32() -> None:
-    """One f32 train_step at batch 1 on the card (TF32 off) against the
-    port's CPU step from the same weights, batch and noise."""
+def check_f32_step(name: str, instance_norm: str, size: tuple, batch: int,
+                   label: str, beyond_share=None,
+                   flipped_share=None) -> None:
+    """One f32 train_step on the card (TF32 off) against the port's CPU step
+    from the same weights, batch and noise: every metric within rtol
+    STEP_METRIC_RTOL, the spectral vectors within STEP_SPECTRAL_ATOL, every
+    parameter within one Adam step of the CPU's, and at most `beyond_share`
+    of the elements further apart than rounding (1e-6) and `flipped_share`
+    further apart than lr (moved the other way), where given."""
+    image, latent, _ = size
     rng = np.random.RandomState(20)
-    batch = {"x": _images(1, 21), "y": _images(1, 22)}
-    eps = [rng.randn(1, IMAGE // 16, IMAGE // 16, LATENT).astype(np.float32)
-           for _ in GEN_PASSES]
-    gpu, cpu = _task(torch.float32, DEV), _task(torch.float32, "cpu")
-    got = _finite_metrics(gpu.train_step(batch, eps=eps))
+    data = {"x": rng.rand(batch, image, image, 3).astype(np.float32),
+            "y": rng.rand(batch, image, image, 3).astype(np.float32)}
+    gpu = _task(torch.float32, DEV, name, instance_norm, size)
+    cpu = _task(torch.float32, "cpu", name, instance_norm, size)
+    eps = [rng.randn(batch, image // 16, image // 16, latent)
+           .astype(np.float32) for _ in gpu.train_passes]
+    got = _finite_metrics(gpu.train_step(data, eps=eps))
     t0 = time.perf_counter()
-    want = _finite_metrics(cpu.train_step(batch, eps=eps))
+    want = _finite_metrics(cpu.train_step(data, eps=eps))
     cpu_s = time.perf_counter() - t0
     worst = max(abs(got[k] - want[k]) / (abs(want[k]) + 1e-3) for k in want)
-    ok = all(abs(got[k] - want[k]) <= STEP_METRIC_RTOL * abs(want[k]) + 1e-5
-             for k in want)
-    say(f"check train_step f32 card vs CPU (batch 1, TF32 off, CPU step "
-        f"{cpu_s:.1f} s): metrics max relative error {worst:.3e} (rtol "
-        f"{STEP_METRIC_RTOL:g}, atol 1e-5) {'ok' if ok else 'FAIL'}")
-    require(ok, f"train_step metrics card vs CPU: {got} vs {want}")
+    ok = set(got) == set(want) and all(
+        abs(got[k] - want[k]) <= STEP_METRIC_RTOL * abs(want[k]) + 1e-5
+        for k in want)
+    say(f"check train_step f32 {label} card vs CPU (batch {batch}, TF32 "
+        f"off, CPU step {cpu_s:.1f} s): metrics max relative error "
+        f"{worst:.3e} (rtol {STEP_METRIC_RTOL:g}, atol 1e-5) "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"{label} train_step metrics card vs CPU: {got} vs {want}")
     lr = gpu.oc.lr
     gsd, csd = gpu.state_dict(), cpu.state_dict()
     spec, par, n, beyond_round, flipped = 0.0, 0.0, 0, 0, 0
-    for name, c in csd.items():
-        d = (gsd[name].cpu() - c).abs()
-        if name.endswith(("weight_u", "weight_v")):
+    for key, c in csd.items():
+        d = (gsd[key].cpu() - c).abs()
+        if key.endswith(("weight_u", "weight_v")):
             spec = max(spec, float(d.max()))
             continue
         par = max(par, float(d.max()))
         n += d.numel()
         beyond_round += int((d > 1e-6).sum())
         flipped += int((d > lr).sum())
-    say(f"check train_step f32 card vs CPU: spectral u/v max_abs_err "
+    say(f"check train_step f32 {label} card vs CPU: spectral u/v max_abs_err "
         f"{spec:.3e} (atol {STEP_SPECTRAL_ATOL:g}); parameters max_abs_err "
         f"{par:.3e} = {par / lr:.3f} lr (bound 2 lr + 1e-6); "
         f"{beyond_round / n:.4f} of {n} elements differ by more than 1e-6 "
-        f"(bound {STEP_PARAM_SHARE:g}), "
-        f"{flipped / n:.4f} by more than lr (opposite Adam signs)")
-    require(spec <= STEP_SPECTRAL_ATOL, "spectral vectors card vs CPU")
-    require(par <= 2 * lr + 1e-6, "parameters card vs CPU within one Adam step")
-    require(beyond_round / n <= STEP_PARAM_SHARE,
-            f"parameters card vs CPU: more than {STEP_PARAM_SHARE:g} of the "
-            "elements differ beyond rounding")
+        f"(bound {beyond_share}), {flipped / n:.4f} by more than lr "
+        f"(opposite Adam signs; bound {flipped_share})")
+    require(spec <= STEP_SPECTRAL_ATOL, f"{label} spectral vectors card vs CPU")
+    require(par <= 2 * lr + 1e-6,
+            f"{label} parameters card vs CPU within one Adam step")
+    if beyond_share is not None:
+        require(beyond_round / n <= beyond_share,
+                f"{label} parameters card vs CPU: more than {beyond_share:g} "
+                "of the elements differ beyond rounding")
+    if flipped_share is not None:
+        require(flipped / n <= flipped_share,
+                f"{label} parameters card vs CPU: more than "
+                f"{flipped_share:g} of the elements moved the other way")
 
 
-def phase_train_times(card: str, tr: dict) -> dict:
-    b16 = torch.bfloat16
+def time_steps(task, batches, label: str, card: str,
+               profile_lines=0) -> dict:
+    """Training step time per batch size: median of 5 train_steps after 2
+    warm-ups (host clock around the step and a synchronize), peak device
+    memory over them, then the device's busy time over 2 profiled steps and
+    the idle share 1 - busy / median. The profile table goes to
+    chiprun_out/profile_train_<label>_batch<b>.txt, its first
+    `profile_lines` lines to the output."""
     times = {}
-
-    def show(label, t):
-        say(f"time {label} bf16: kernel {t['ms']:.4f} ms (device "
-            f"{ms_text(t['device_ms'])}), plain {t['plain_ms']:.4f} ms "
-            f"(device {ms_text(t['plain_device_ms'])}) [{card}]")
-
-    # the new kernels at the training path's shapes, batch 4
-    dx_total = dw_total = None
-    for name, cin, cout, k in TRAIN_CONVS:
-        x = randn((PATH_BATCH, cin, IMAGE, IMAGE), 30, b16)
-        g = randn((PATH_BATCH, cout, IMAGE, IMAGE), 31, b16)
-        wrot = rotate(randn((cout, cin, k, k), 32, b16, 0.05)).contiguous()
-        t = kernel_vs_plain(lambda: zero_conv_cuda(g, wrot),
-                            lambda: zero_conv(g, wrot), 10)
-        show(f"starved_conv zero_same {name} dx g{tuple(g.shape)} "
-             f"wrot{tuple(wrot.shape)}", t)
-        dx_total = add_times(dx_total, t)
-        t = kernel_vs_plain(lambda: dw_cuda(x, g, k),
-                            lambda: dw_reference(x, g, k), 10)
-        show(f"starved_conv_dw {name} x{tuple(x.shape)} g{tuple(g.shape)} "
-             f"k{k}", t)
-        dw_total = add_times(dw_total, t)
-    times["starved_conv_zero_same"] = dx_total
-    times["starved_conv_dw"] = dw_total
-
-    # training step time, device busy time and peak memory per batch size
-    task = tr["task"]
     gen = torch.Generator(device=DEV).manual_seed(1)
-    for b in TRAIN_BATCHES:
+    for b in batches:
         batch = {"x": torch.as_tensor(_images(b, 40 + b), device=DEV),
                  "y": torch.as_tensor(_images(b, 41 + b), device=DEV)}
         for _ in range(2):
@@ -653,27 +815,75 @@ def phase_train_times(card: str, tr: dict) -> dict:
             vals = _finite_metrics(task.train_step(batch, generator=gen))
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t0) * 1e3)
-            require(vals["nan_detected"] == 0.0, "timed step skipped")
+            require(vals["nan_detected"] == 0.0, f"{label}: timed step skipped")
         med = float(np.median(lat))
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
-        # device busy time and where it goes, by kernel, over 2 steps
         busy, events = profiled(lambda: task.train_step(batch, generator=gen),
                                 2)
         idle = "not measured" if busy is None else \
             f"{max(0.0, 1 - busy / med):.3f}"
-        times[("train", b)] = med
-        say(f"time train_step batch {b} bf16: median {med:.2f} ms of "
+        times[b] = med
+        say(f"time train_step {label} batch {b} bf16: median {med:.2f} ms of "
             f"{len(lat)} (min {min(lat):.2f}, max {max(lat):.2f}), "
             f"{b / med * 1e3:.1f} img/s, device busy {ms_text(busy, 2)} ms "
             f"per step (idle share {idle}), peak memory {peak:.0f} MiB "
             f"[{card}]")
         table = events.table(sort_by="self_cuda_time_total", row_limit=45)
         OUT_DIR.mkdir(exist_ok=True)
-        (OUT_DIR / f"profile_train_batch{b}.txt").write_text(table)
-        say(f"profile (train_step, batch {b}, 2 steps; top self device time, "
-            f"full table in chiprun_out/profile_train_batch{b}.txt):")
-        for line in table.splitlines()[:20]:
-            say(f"  {line}")
+        path = OUT_DIR / f"profile_train_{label}_batch{b}.txt"
+        path.write_text(table)
+        if profile_lines:
+            say(f"profile (train_step {label}, batch {b}, 2 steps; top self "
+                f"device time, full table in {path}):")
+            for line in table.splitlines()[:profile_lines]:
+                say(f"  {line}")
+    return times
+
+
+def phase_train_times(card: str, tr: dict) -> dict:
+    b16 = torch.bfloat16
+    times = {}
+
+    def show(label, t):
+        say(f"time {label} bf16: kernel {t['ms']:.4f} ms (device "
+            f"{ms_text(t['device_ms'])}), plain {t['plain_ms']:.4f} ms "
+            f"(device {ms_text(t['plain_device_ms'])}), library "
+            f"{ms_text(t['library_ms'])} ms [{card}]")
+
+    # the training kernels at the path's shapes, batch 4. The library calls:
+    # the zero-padded conv is one F.conv2d (the plain version itself); the
+    # weight gradient is conv2d_weight on the reflect-padded bf16 input,
+    # padded before the timed loop (it rounds dw to bf16, the kernel keeps
+    # f32)
+    dx_total = dw_total = None
+    dx_work, dw_work = [], []
+    for name, cin, cout, k in TRAIN_CONVS:
+        x = randn((PATH_BATCH, cin, IMAGE, IMAGE), 30, b16)
+        g = randn((PATH_BATCH, cout, IMAGE, IMAGE), 31, b16)
+        wrot = rotate(randn((cout, cin, k, k), 32, b16, 0.05)).contiguous()
+        t = kernel_vs_plain(lambda: zero_conv_cuda(g, wrot),
+                            lambda: zero_conv(g, wrot),
+                            lambda: F.conv2d(g, wrot, padding=k // 2), 10)
+        show(f"starved_conv zero_same {name} dx g{tuple(g.shape)} "
+             f"wrot{tuple(wrot.shape)}", t)
+        dx_total = add_times(dx_total, t)
+        dx_work.append(conv_work(g.shape, cin, k, (IMAGE, IMAGE), 2, 2))
+        xp = reflect_pad(x, k // 2)
+        t = kernel_vs_plain(
+            lambda: dw_cuda(x, g, k), lambda: dw_reference(x, g, k),
+            lambda: torch.nn.grad.conv2d_weight(xp, (cout, cin, k, k), g), 10)
+        show(f"starved_conv_dw {name} x{tuple(x.shape)} g{tuple(g.shape)} "
+             f"k{k}", t)
+        dw_total = add_times(dw_total, t)
+        # x and g read once (bf16), dw written once (f32)
+        _, ops = conv_work(x.shape, cout, k, (IMAGE, IMAGE), 2, 2)
+        dw_work.append((2 * (x.numel() + g.numel()) + 4 * cout * cin * k * k,
+                        ops))
+    times["starved_conv_zero_same"] = {**dx_total,
+                                       **sum_bounds(dx_work, "bf16")}
+    times["starved_conv_dw"] = {**dw_total, **sum_bounds(dw_work, "bf16")}
+    times.update({("train", b): t for b, t in time_steps(
+        tr["task"], TRAIN_BATCHES, "cyclevaegan", card, 20).items()})
     return times
 
 
@@ -684,26 +894,34 @@ def phase_times(card: str, sl: dict) -> dict:
     def show(label, t):
         say(f"time {label} bf16: kernel {t['ms']:.4f} ms (device "
             f"{ms_text(t['device_ms'])}), plain {t['plain_ms']:.4f} ms "
-            f"(device {ms_text(t['plain_device_ms'])}) [{card}]")
+            f"(device {ms_text(t['plain_device_ms'])}), library "
+            f"{ms_text(t['library_ms'])} ms [{card}]")
 
-    # kernels at the path shapes (batch 4 and 16, bf16)
+    # kernels at the path shapes (batch 4 and 16, bf16). IN+act at the R
+    # blocks' identity site, where F.instance_norm is the library call; the
+    # conv's library call is cuDNN's F.conv2d on the input reflect-padded
+    # before the timed loop
     for b in (PATH_BATCH, 16):
-        x = randn((b, 16 * BASE, IMAGE // 16, IMAGE // 16), 7, b16)
-        t = kernel_vs_plain(lambda: in_act_cuda(x, "relu", "act_norm"),
-                            lambda: fused_reference(x, "relu", "act_norm"),
-                            200)
-        times[("in_act", b)] = t
-        show(f"in_act {tuple(x.shape)}", t)
-        total = None
+        shape = (b,) + IDENTITY_SITE[1:]
+        x = randn(shape, 7, b16)
+        t = kernel_vs_plain(lambda: in_act_cuda(x, "identity", "act_norm"),
+                            lambda: fused_reference(x, "identity", "act_norm"),
+                            lambda: F.instance_norm(x), 200)
+        times[("in_act", b)] = {**t, **in_act_bound(shape, b16)}
+        show(f"in_act {shape} identity/act_norm", t)
+        total, work = None, []
         for name, cin, cout, kk in (("U4", BASE // 2, BASE, 3),
                                     ("tail", BASE, 3, 7)):
             x = randn((b, cin, IMAGE, IMAGE), 8, b16)
             w = randn((cout, cin, kk, kk), 9, b16, 0.05)
+            xp = reflect_pad(x, kk // 2)
             t = kernel_vs_plain(lambda: reflect_conv_cuda(x, w),
-                                lambda: reflect_conv(x, w), 20)
+                                lambda: reflect_conv(x, w),
+                                lambda: F.conv2d(xp, w), 20)
             show(f"starved_conv {name} x{tuple(x.shape)} w{tuple(w.shape)}", t)
             total = add_times(total, t)
-        times[("starved_conv", b)] = total
+            work.append(conv_work(x.shape, cout, kk, (IMAGE, IMAGE), 2, 2))
+        times[("starved_conv", b)] = {**total, **sum_bounds(work, "bf16")}
 
     # request latency per batch size, peak memory, and the device's busy
     # time per request (profiler) against that latency. The task holds F's
@@ -752,18 +970,88 @@ def phase_times(card: str, sl: dict) -> dict:
     return times
 
 
+def phase_tiled_times(card: str) -> dict:
+    """The two-pass IN kernel at the identity site against tiled_reference
+    and F.instance_norm (the summary line's numbers); then, at every tiled
+    site of the training path (batch 4, bf16), the two kernels and the two
+    plain versions side by side: K2, tiled_reference, the one-pass kernel
+    (which takes any plane, looping over it where it does not fit shared
+    memory) and fused_reference, the "auto" path's plain version of the
+    slabs over 1 MB."""
+    b16 = torch.bfloat16
+    x = randn(IDENTITY_SITE, 7, b16)
+    t = kernel_vs_plain(lambda: in_act_tiled_cuda(x, "identity", "act_norm"),
+                        lambda: tiled_reference(x, "identity", "act_norm"),
+                        lambda: F.instance_norm(x), 200)
+    say(f"time in_act_tiled {IDENTITY_SITE} identity/act_norm bf16: kernel "
+        f"{t['ms']:.4f} ms (device {ms_text(t['device_ms'])}), plain "
+        f"{t['plain_ms']:.4f} ms (device {ms_text(t['plain_device_ms'])}), "
+        f"F.instance_norm {t['library_ms']:.4f} ms [{card}]")
+    out = {"in_act_tiled": {**t, **in_act_bound(IDENTITY_SITE, b16)}}
+    for i, (shape, act, order) in enumerate(TILED_SITES):
+        x = randn(shape, 950 + i, b16, 2.0) + 0.5
+        fns = {"K2": lambda: in_act_tiled_cuda(x, act, order),
+               "tiled_reference": lambda: tiled_reference(x, act, order),
+               "K1": lambda: in_act_cuda(x, act, order),
+               "fused_reference": lambda: fused_reference(x, act, order)}
+        ms = time_calls(fns, 20)
+        b = in_act_bound(shape, b16)["bound_ms"]
+        mb = shape[1] * shape[2] * shape[3] * 4 / 2 ** 20
+        say(f"time IN site {shape} {act}/{order} bf16 (f32 slab {mb:g} MiB "
+            f"per sample), CUDA events / device per call: " + ", ".join(
+                f"{k} {v:.4f} / {ms_text(profiled(fns[k], 20)[0])} ms"
+                for k, v in ms.items())
+            + f"; bound {b:.4f} ms (bytes) [{card}]")
+    return out
+
+
+def phase_tiled_train(card: str) -> dict:
+    """The cyclevaegan step under instance_norm="tiled": the path, the f32
+    step against the CPU's, and the step times at batch 4 and 24."""
+    tr = train_path("cyclevaegan", "tiled", TILED_STEP_LAUNCHES, 3,
+                    "cyclevaegan-tiled")
+    check_f32_step("cyclevaegan", "tiled", (IMAGE, LATENT, BASE), 1,
+                   "cyclevaegan-tiled", beyond_share=STEP_PARAM_SHARE)
+    time_steps(tr["task"], TRAIN_BATCHES, "cyclevaegan-tiled", card, 20)
+    return tr["launches"]
+
+
+def phase_families(card: str) -> None:
+    """The nine other architectures: the training path at full width (two
+    bf16 train_steps at batch 4, then eval_step and generate), five timed
+    steps after those two, and one f32 step on the card against the CPU's at
+    FAMILY_F32_SIZE."""
+    for name in ARCHITECTURES:
+        if name == "cyclevaegan":
+            continue
+        tr = train_path(name, "auto", FAMILY_STEP_LAUNCHES[name], 2, name)
+        time_steps(tr["task"], (PATH_BATCH,), name, card)
+        del tr
+        torch.cuda.empty_cache()
+        check_f32_step(name, "auto", FAMILY_F32_SIZE, 2, name,
+                       flipped_share=FAMILY_FLIPPED[name])
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
     errs = phase_kernels()
     errs.update(phase_train_kernels())
+    errs.update(phase_tiled_kernels())
     sl = phase_slice()
     times = phase_times(card, sl)
     del sl
-    tr = phase_train()
-    phase_train_f32()
+    tr = train_path("cyclevaegan", "auto", STEP_LAUNCHES, 3, "cyclevaegan")
+    check_f32_step("cyclevaegan", "auto", (IMAGE, LATENT, BASE), 1,
+                   "cyclevaegan", beyond_share=STEP_PARAM_SHARE)
     times.update(phase_train_times(card, tr))
     launches = tr["launches"]  # the training path's three steps
+    del tr
+    torch.cuda.empty_cache()
+    tiled_launches = phase_tiled_train(card)
+    torch.cuda.empty_cache()
+    times.update(phase_tiled_times(card))
+    phase_families(card)
     conv_src = "vae_cyclegan_tpu_torch/csrc/starved_conv.cu"
     summary = {"kernels": [
         {"name": "in_act", "route": "cuda",
@@ -771,7 +1059,16 @@ def main() -> None:
          "replaces": "vae_cyclegan_tpu/ops/instance_norm.py:110",
          "launches": launches["in_act"],
          "max_abs_err": errs["in_act"],
+         # the identity site at batch 4
          **measured(times[("in_act", PATH_BATCH)])},
+        {"name": "in_act_tiled", "route": "cuda",
+         "source": "vae_cyclegan_tpu_torch/csrc/in_act_tiled.cu",
+         "replaces": "vae_cyclegan_tpu/ops/instance_norm.py:180",
+         # the tiled training path's three steps
+         "launches": tiled_launches["in_act_tiled"],
+         "max_abs_err": errs["in_act_tiled"],
+         # the identity site at batch 4
+         **measured(times["in_act_tiled"])},
         {"name": "starved_conv", "route": "cuda", "source": conv_src,
          "replaces": "vae_cyclegan_tpu/ops/starved_conv.py:279",
          "launches": launches["starved_conv"],

@@ -17,7 +17,9 @@ from vae_cyclegan_tpu_torch.models.tasks import create_task
 from vae_cyclegan_tpu_torch.ops.instance_norm import (
     fused_reference,
     in_act_cuda,
+    in_act_tiled_cuda,
     instance_norm_act,
+    tiled_reference,
 )
 from vae_cyclegan_tpu_torch.ops.reflect_conv import reflect_conv
 from vae_cyclegan_tpu_torch.ops.starved_conv import (
@@ -72,6 +74,63 @@ def _assert_close(got, want):
 def test_in_act_kernel_matches_plain(cuda, shape, dtype, act, order):
     x = _randn(shape, 0, cuda, dtype, 2.0) + 0.5
     _assert_close(in_act_cuda(x, act, order), fused_reference(x, act, order))
+
+
+# the tiled configuration's sites at batch 2 (generator: 256x256x64 ...
+# 16x16x1024; discriminator: 64x64x128 ... 16x16x512, among them) and edge
+# shapes: planes that are not a multiple of the kernel's 4096-element chunk
+# or of its 16-byte vector, one plane smaller than a warp's vector sweep
+TILED_SHAPES = [(2, 64, 256, 256), (2, 128, 128, 128), (2, 256, 64, 64),
+                (2, 512, 32, 32), (2, 1024, 16, 16), (2, 3, 75, 67),
+                (3, 5, 64, 65), (1, 2, 9, 9)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", TILED_SHAPES)
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "tanh", "sigmoid",
+                                 "identity"])
+@pytest.mark.parametrize("order", ["norm_act", "act_norm"])
+def test_in_act_tiled_kernel_matches_plain(cuda, shape, dtype, act, order):
+    """K2 against tiled_reference; the two passes sum in a fixed order with
+    no atomics, so a second launch gives the same bits."""
+    x = _randn(shape, 20, cuda, dtype, 2.0) + 0.5
+    got = in_act_tiled_cuda(x, act, order)
+    _assert_close(got, tiled_reference(x, act, order))
+    assert torch.equal(in_act_tiled_cuda(x, act, order), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_in_act_tiled_kernel_takes_unaligned_views(cuda, dtype):
+    """A view one element into its storage is not 16-byte aligned: the
+    kernel takes its one-element path, and agrees."""
+    base = _randn((2 * 64 * 64 * 64 + 1,), 21, cuda, dtype, 2.0)
+    x = base[1:].view(2, 64, 64, 64)
+    assert x.data_ptr() % 16 != 0
+    _assert_close(in_act_tiled_cuda(x, "relu", "act_norm"),
+                  tiled_reference(x, "relu", "act_norm"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("act,order", [("relu", "act_norm"),
+                                       ("identity", "act_norm"),
+                                       ("leaky_relu", "norm_act")])
+def test_in_act_tiled_function_gradients_match_plain_autograd(cuda, dtype, act,
+                                                              order):
+    """instance_norm_act under "tiled" at a 128x128x64 slab: one K2 launch,
+    y against tiled_reference and dx (the centered backward) against
+    autograd of tiled_reference."""
+    x = _randn((2, 64, 128, 128), 22, cuda, dtype, 2.0) + 0.5
+    gy = _randn((2, 64, 128, 128), 23, cuda, dtype)
+    before = in_act_tiled_cuda.launches
+    xa = x.clone().requires_grad_()
+    y = instance_norm_act(xa, act=act, order=order, mode="tiled")
+    (dx,) = torch.autograd.grad(y, xa, gy)
+    assert in_act_tiled_cuda.launches == before + 1
+    xb = x.clone().requires_grad_()
+    y_ref = tiled_reference(xb, act, order)
+    (dx_ref,) = torch.autograd.grad(y_ref, xb, gy)
+    _assert_close(y, y_ref)
+    _assert_close(dx, dx_ref)
 
 
 # tests/test_starved_conv.py CONV_CASES (h, w, cin, cout, k) and the
@@ -206,6 +265,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         in_act_cuda(x.transpose(2, 3), "relu", "act_norm")
     with pytest.raises(RuntimeError, match="not differentiable"):
         in_act_cuda(x.requires_grad_(), "relu", "act_norm")
+    x = _randn((2, 8, 16, 16), 6, cuda, torch.float32)
+    with pytest.raises(TypeError):
+        in_act_tiled_cuda(x.half(), "relu", "act_norm")
+    with pytest.raises(ValueError):
+        in_act_tiled_cuda(x.transpose(2, 3), "relu", "act_norm")
+    with pytest.raises(ValueError, match="CUDA"):
+        in_act_tiled_cuda(x.cpu(), "relu", "act_norm")
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        in_act_tiled_cuda(x.requires_grad_(), "relu", "act_norm")
     x = _randn((2, 8, 32, 32), 7, cuda, torch.float32)
     w = _randn((16, 8, 3, 3), 8, cuda, torch.float32)
     with pytest.raises(TypeError):
@@ -225,7 +293,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 def test_slice_on_cuda_launches_each_picked_site_and_matches_cpu(cuda):
     model = ModelConfig(64, 8, 16)
     gpu = create_task("cyclevaegan", model=model, device=cuda)
-    cpu = create_task("cyclevaegan", model=model)
+    cpu = create_task("cyclevaegan", model=model, device="cpu")
     gpu.init(0)
     cpu.init(0)
     rng = np.random.RandomState(0)
@@ -239,5 +307,26 @@ def test_slice_on_cuda_launches_each_picked_site_and_matches_cpu(cuda):
     assert launched == (sum(s[0] == "in_act" for s in sites),
                         sum(s[0] == "starved_conv" for s in sites))
     assert launched[0] > 0 and launched[1] > 0
+    want = cpu.generate({"x": x}, eps=eps)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-2)
+
+
+def test_tiled_slice_on_cuda_launches_each_picked_site_and_matches_cpu(cuda):
+    """generate under "tiled" at 64 px, base 16: K2 at every picked site
+    and never K1; the card's f32 output against the CPU's."""
+    model = ModelConfig(64, 8, 16, instance_norm="tiled")
+    gpu = create_task("cyclevaegan", model=model, device=cuda)
+    cpu = create_task("cyclevaegan", model=model, device="cpu")
+    gpu.init(0)
+    cpu.init(0)
+    rng = np.random.RandomState(0)
+    x = rng.rand(2, 64, 64, 3).astype(np.float32)
+    eps = rng.randn(2, 4, 4, 8).astype(np.float32)
+    before = (in_act_cuda.launches, in_act_tiled_cuda.launches)
+    with kernels.record_sites() as sites:
+        got = gpu.generate({"x": x}, eps=eps)
+    launched = (in_act_cuda.launches - before[0],
+                in_act_tiled_cuda.launches - before[1])
+    assert launched == (0, sum(s[0] == "in_act_tiled" for s in sites)) != (0, 0)
     want = cpu.generate({"x": x}, eps=eps)
     torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-2)

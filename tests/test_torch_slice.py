@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_families import jax_kernel_sites
 from vae_cyclegan_tpu.config import ModelConfig as JModelConfig
 from vae_cyclegan_tpu.models.tasks import create_task as jax_create_task
 from vae_cyclegan_tpu.parallel.dp import eps_queue
@@ -47,7 +48,8 @@ def pair():
         params[name] = tree["params"]
         if "spectral" in tree:
             spectral[name] = tree["spectral"]
-    ttask = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT, BASE))
+    ttask = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT, BASE),
+                        device="cpu")
     ttask.load_state_dict(params_from_jax(params, spectral), strict=True)
     gen = {name: params[name] for name in ("G", "F")}
     return jtask, gen, ttask
@@ -104,9 +106,10 @@ def test_small_slice_takes_the_same_kernel_sites_as_jax(pair, monkeypatch):
     such handover, so the slab rule alone decides that IN: here its 256 KB
     slab takes the kernel. At full width the slab is 16 MB and both sides
     run the plain version (next test)."""
-    jtask, params, ttask = pair
+    jtask, _, ttask = pair
     x = np.zeros((BATCH, IMAGE, IMAGE, 3), np.float32)
-    jax_sites = _jax_sites(monkeypatch, jtask, x.shape, params)
+    jax_sites = jax_kernel_sites(monkeypatch, jtask, BATCH, fn="generate",
+                                 image=IMAGE)
     with kernels.record_sites() as sites:
         ttask.generate({"x": torch.from_numpy(x)})
     u4, tail = jax_sites[-2:]
@@ -117,9 +120,11 @@ def test_small_slice_takes_the_same_kernel_sites_as_jax(pair, monkeypatch):
 
 
 def test_init_is_seeded_and_matches_reference_init():
-    task = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT, BASE))
+    task = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT, BASE),
+                       device="cpu")
     task.init(3)
-    again = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT, BASE))
+    again = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT, BASE),
+                        device="cpu")
     again.init(3)
     for (name, a), b in zip(task.state_dict().items(),
                             again.state_dict().values()):
@@ -146,75 +151,52 @@ def test_init_is_seeded_and_matches_reference_init():
 
 def test_configs_default_to_the_jax_package_values():
     """Field for field, the JAX configs' defaults, with torch dtypes; JAX's
-    use_pallas and remat have no counterpart."""
+    use_pallas maps to instance_norm, its remat has no counterpart."""
     jcfg = importlib.import_module("vae_cyclegan_tpu.config")
     tcfg = importlib.import_module("vae_cyclegan_tpu_torch.config")
     for name in ("ModelConfig", "OptimConfig", "LossConfig"):
         want = dataclasses.asdict(getattr(jcfg, name)())
         got = dataclasses.asdict(getattr(tcfg, name)())
         if name == "ModelConfig":
-            assert want.pop("use_pallas") is None and not want.pop("remat")
+            assert got.pop("instance_norm") == tcfg.instance_norm_mode(
+                want.pop("use_pallas")) == "auto"
+            assert not want.pop("remat")
             assert want.pop("dtype") == jnp.float32
             assert got.pop("dtype") == torch.float32
         assert got == want, name
 
 
 def test_create_task_names():
-    assert len(ARCHITECTURES) == 10
+    """All ten architectures construct on the CPU when asked for it, with
+    the JAX package's names, has_fy and discriminators."""
+    jtasks = importlib.import_module("vae_cyclegan_tpu.models.tasks")
+    assert list(ARCHITECTURES) == list(jtasks.ARCHITECTURES)
     with pytest.raises(ValueError):
-        create_task("pix2pix")
+        create_task("pix2pix", device="cpu")
     for name in ARCHITECTURES:
-        if name == "cyclevaegan":
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            create_task(name)
+        task = create_task(name, model=ModelConfig(32, 8, 8), device="cpu")
+        assert task.name == name and task.device == torch.device("cpu")
+        assert task.has_fy == jtasks.ARCHITECTURES[name].has_fy
+        assert all(p.device.type == "cpu" for p in task.nets.parameters())
+
+
+@pytest.mark.parametrize("name", ["vae", "cyclevaegan"])
+def test_tasks_default_to_the_card(name):
+    """Without a device the task goes to CUDA; on a machine without one the
+    constructor raises and never hands back a CPU task."""
+    if torch.cuda.is_available():
+        assert create_task(name, model=ModelConfig(32, 8, 8)).device.type \
+            == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_task(name, model=ModelConfig(32, 8, 8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ARCHITECTURES[name](model=ModelConfig(32, 8, 8))
 
 
 # ---------------------------------------------------------------------------
 # kernel sites of the full-width serving forward
 # ---------------------------------------------------------------------------
-
-
-def _jax_sites(monkeypatch, jtask, x_shape, params=None):
-    """The JAX package's Pallas launcher calls for one `generate`, traced
-    with jax.eval_shape and the TPU dispatch forced on (interpret mode, so
-    the kernels could also run here), as NCHW-shaped site tuples."""
-    jin = importlib.import_module("vae_cyclegan_tpu.ops.instance_norm")
-    jsc = importlib.import_module("vae_cyclegan_tpu.ops.starved_conv")
-    monkeypatch.setattr(jin, "_on_tpu", lambda: True)
-    monkeypatch.setattr(jin, "_INTERPRET", True)
-    monkeypatch.setattr(jsc, "_INTERPRET", True)
-    monkeypatch.delenv("VCT_STARVED_FORCE", raising=False)
-    monkeypatch.delenv("VCT_STARVED_CONV", raising=False)
-    key = jax.random.PRNGKey(0)
-    if params is None:
-        x1 = jax.ShapeDtypeStruct((1,) + tuple(x_shape[1:]), jnp.float32)
-        params = {"G": jax.eval_shape(
-            lambda x: jtask.G.init({"params": key, "reparam": key}, x),
-            x1)["params"]}
-    sites = []
-    in_act, conv_call = jin._pallas_in_act, jsc._conv_call
-
-    def record_in_act(x, act, order, eps, interpret=False):
-        n, h, w, c = x.shape
-        sites.append(("in_act", (n, c, h, w), str(x.dtype), None, None, None,
-                      act, order))
-        return in_act(x, act, order, eps, interpret=interpret)
-
-    def record_conv(x, w_packed, *, k, p, cin, cout, reflect):
-        n, h, c, w = x.shape  # channel-major
-        assert reflect and p == k // 2
-        sites.append(("starved_conv", (n, c, h, w), str(x.dtype), k, cin,
-                      cout, None, None))
-        return conv_call(x, w_packed, k=k, p=p, cin=cin, cout=cout,
-                         reflect=reflect)
-
-    monkeypatch.setattr(jin, "_pallas_in_act", record_in_act)
-    monkeypatch.setattr(jsc, "_conv_call", record_conv)
-    jax.eval_shape(
-        lambda p, x: jtask.generate(SimpleNamespace(params=p), {"x": x}, key),
-        params, jax.ShapeDtypeStruct(tuple(x_shape), jnp.float32))
-    return sites
 
 
 def test_full_width_kernel_sites_match_jax_tpu_path(monkeypatch):
@@ -224,7 +206,7 @@ def test_full_width_kernel_sites_match_jax_tpu_path(monkeypatch):
     b = 4
     jtask = jax_create_task("cyclevaegan", model=JModelConfig(
         image_size=256, latent_dim=64, base_width=64, dtype=jnp.bfloat16))
-    jax_sites = _jax_sites(monkeypatch, jtask, (b, 256, 256, 3))
+    jax_sites = jax_kernel_sites(monkeypatch, jtask, b, fn="generate")
 
     task = create_task("cyclevaegan", model=ModelConfig(
         256, 64, 64, torch.bfloat16), device="meta")

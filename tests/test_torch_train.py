@@ -22,7 +22,6 @@ rounding noise. The forward quantities (metrics, spectral vectors) and the
 discriminator's well-conditioned gradient are held tightly.
 """
 
-import importlib
 import math
 from collections import Counter
 
@@ -32,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_families import jax_kernel_sites
 from vae_cyclegan_tpu import losses as jlosses
 from vae_cyclegan_tpu.config import ModelConfig as JModelConfig
 from vae_cyclegan_tpu.models import networks as jnets
@@ -128,7 +128,8 @@ def runs():
             return jtask.eval_step(st, batch, jax.random.PRNGKey(1))
 
     jstep, jeval = jax.jit(step), jax.jit(evaluate)
-    ttask = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT, BASE))
+    ttask = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT, BASE),
+                        device="cpu")
     ttask.load_state_dict(params_from_jax(*init), strict=True)
     out = {"init": init, "jax": [], "port": []}
     for i, (batch, eps) in enumerate(_inputs()):
@@ -303,7 +304,8 @@ def test_three_train_steps_and_eval_match_jax(runs):
 def test_nan_guard_skips_the_whole_update():
     """A non-finite loss skips optimizer.step() whole: parameters, Adam's
     moments and its step count stay as they were, nan_detected is 1."""
-    task = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT, BASE))
+    task = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT, BASE),
+                       device="cpu")
     task.init(0)
     (batch, eps), _, _ = _inputs()
     assert task.train_step(batch, eps=eps)["nan_detected"] == 0.0
@@ -337,7 +339,8 @@ def test_metric_keys_follow_paired_and_the_loss_weights():
     for paired in (True, False):
         task = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT,
                                                             BASE),
-                           loss=LossConfig(lambda_kl=2e-5), paired=paired)
+                           loss=LossConfig(lambda_kl=2e-5), paired=paired,
+                           device="cpu")
         task.init(0)
         m = task.eval_step(batch, eps=eps)
         keys = TRAIN_KEYS - {"d_x_real_mean", "d_x_fake_mean",
@@ -360,7 +363,8 @@ def test_weight_bridge_round_trip_with_discriminators(runs):
     and back through the JAX package's own torch importer bit for bit (v
     permuted from (kH, kW, I) to torch's (I, kH, kW) and back)."""
     params, spectral = runs["init"]
-    task = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT, BASE))
+    task = create_task("cyclevaegan", model=ModelConfig(IMAGE, LATENT, BASE),
+                       device="cpu")
     task.load_state_dict(params_from_jax(params, spectral), strict=True)
     sd = {k: v.numpy() for k, v in task.state_dict().items()}
     assert sd["DX.model.4.weight_v"].shape == (8 * BASE * 2 * 2,)
@@ -487,53 +491,6 @@ def test_losses_match_jax(name):
 # ---------------------------------------------------------------------------
 
 
-def _jax_train_sites(monkeypatch, jtask, batch_size):
-    """The JAX package's Pallas launcher calls for one train_step, traced
-    with jax.eval_shape and the TPU dispatch forced on, as NCHW-shaped site
-    tuples in the port's vocabulary."""
-    jin = importlib.import_module("vae_cyclegan_tpu.ops.instance_norm")
-    jsc = importlib.import_module("vae_cyclegan_tpu.ops.starved_conv")
-    monkeypatch.setattr(jin, "_on_tpu", lambda: True)
-    monkeypatch.setattr(jin, "_INTERPRET", True)
-    monkeypatch.setattr(jsc, "_INTERPRET", True)
-    for knob in ("VCT_STARVED_FORCE", "VCT_STARVED_CONV", "VCT_STARVED_DX",
-                 "VCT_STARVED_DW", "VCT_STARVED_FWD"):
-        monkeypatch.delenv(knob, raising=False)
-    # the abstract state first: Flax's init runs forwards of its own
-    state = jax.eval_shape(jtask.init_state, jax.random.PRNGKey(0))
-    sites = []
-    in_act, conv_call, dw_call = (jin._pallas_in_act, jsc._conv_call,
-                                  jsc._dw_call)
-
-    def record_in_act(x, act, order, eps, interpret=False):
-        n, h, w, c = x.shape
-        sites.append(("in_act", (n, c, h, w), str(x.dtype), None, None, None,
-                      act, order))
-        return in_act(x, act, order, eps, interpret=interpret)
-
-    def record_conv(x, w_packed, *, k, p, cin, cout, reflect):
-        n, h, c, w = x.shape  # channel-major
-        assert p == k // 2  # reflect forward or zero_same dx, never full
-        kind = "starved_conv" if reflect else "starved_conv_dx"
-        sites.append((kind, (n, c, h, w), str(x.dtype), k, cin, cout, None,
-                      None))
-        return conv_call(x, w_packed, k=k, p=p, cin=cin, cout=cout,
-                         reflect=reflect)
-
-    def record_dw(x, g, *, k):
-        n, h, c, w = x.shape
-        sites.append(("starved_conv_dw", (n, c, h, w), str(x.dtype), k, c,
-                      g.shape[2], None, None))
-        return dw_call(x, g, k=k)
-
-    monkeypatch.setattr(jin, "_pallas_in_act", record_in_act)
-    monkeypatch.setattr(jsc, "_conv_call", record_conv)
-    monkeypatch.setattr(jsc, "_dw_call", record_dw)
-    image = jax.ShapeDtypeStruct((batch_size, 256, 256, 3), jnp.float32)
-    jax.eval_shape(jtask.train_step, state, {"x": image, "y": image})
-    return sites
-
-
 def test_full_width_training_sites_match_jax_tpu_path(monkeypatch):
     """256x256, base 64, latent 64, bf16, batch 4: the port's train_step
     (meta device) and the JAX TPU path's (eval_shape) pick the same kernel
@@ -548,7 +505,7 @@ def test_full_width_training_sites_match_jax_tpu_path(monkeypatch):
     jtask = jax_create_task("cyclevaegan", model=JModelConfig(
         image_size=256, latent_dim=64, base_width=64, dtype=jnp.bfloat16),
         paired=True)
-    jax_sites = _jax_train_sites(monkeypatch, jtask, b)
+    jax_sites = jax_kernel_sites(monkeypatch, jtask, b)
 
     task = create_task("cyclevaegan", model=ModelConfig(
         256, 64, 64, torch.bfloat16), device="meta")

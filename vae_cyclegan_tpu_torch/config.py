@@ -1,17 +1,37 @@
 """Configuration dataclasses for models, optimizers and losses.
 
 Counterpart of ``vae_cyclegan_tpu/config.py`` with torch dtypes. The JAX
-config's ``use_pallas`` and ``remat`` have no counterpart: on the card the
-dispatch rules choose the kernels, and rematerialization
-(``torch.utils.checkpoint``) waits until a batch needs it (ROADMAP.md).
+config's ``use_pallas`` becomes ``instance_norm`` (``instance_norm_mode``
+maps one onto the other); its ``remat`` has no counterpart:
+rematerialization (``torch.utils.checkpoint``) waits until a batch needs it
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
+
+#: the InstanceNorm paths a configuration can choose (ops/instance_norm.py)
+INSTANCE_NORM_MODES = ("auto", "tiled")
+
+
+def instance_norm_mode(use_pallas: Optional[Union[bool, str]]) -> str:
+    """The port's ``ModelConfig.instance_norm`` for a JAX ``use_pallas``
+    value: None and True are "auto" (on the TPU both take the one-pass
+    kernel where the slab fits), "tiled" is "tiled". False, which turns
+    every kernel off, has no counterpart."""
+    if use_pallas is None or use_pallas is True:
+        return "auto"
+    if use_pallas == "tiled":
+        return "tiled"
+    if use_pallas is False:
+        raise NotImplementedError(
+            "use_pallas=False (every kernel off) has no counterpart in the "
+            "port: ROADMAP.md, 'Modules to port', item 10")
+    raise ValueError(f"unknown use_pallas value {use_pallas!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,12 +46,21 @@ class ModelConfig:
       base_width: channels of the first encoder conv (64 in the reference).
       dtype: compute dtype of the convs. Parameters stay float32;
         normalization statistics are always computed in float32.
+      instance_norm: "auto" (the one-pass kernel where a sample's slab is at
+        most 1 MB, the plain version above) or "tiled" (the two-pass kernel
+        at every InstanceNorm site but the Decoder's channel-major U4).
     """
 
     image_size: int = 256
     latent_dim: int = 64
     base_width: int = 64
     dtype: torch.dtype = torch.float32
+    instance_norm: str = "auto"
+
+    def __post_init__(self):
+        if self.instance_norm not in INSTANCE_NORM_MODES:
+            raise ValueError(f"instance_norm must be one of "
+                             f"{INSTANCE_NORM_MODES}, got {self.instance_norm!r}")
 
     @property
     def disc_final_kernel(self) -> int:

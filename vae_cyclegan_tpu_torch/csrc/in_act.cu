@@ -30,40 +30,8 @@ constexpr int kMaxThreads = 256;
 // 48 KB of shared memory a block gets without opting in to more.
 constexpr long long kResidentFloats = 12288 - kMaxThreads / 32;
 
-// Activation codes shared with the Python wrapper (ops/instance_norm.py).
-constexpr int kRelu = 0;
-constexpr int kLeakyRelu = 1;
-constexpr int kTanh = 2;
-constexpr int kSigmoid = 3;
-
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case kRelu:
-      return x < 0.f ? 0.f : x;
-    case kLeakyRelu:
-      return x >= 0.f ? x : 0.2f * x;
-    case kTanh:
-      return tanhf(x);
-    case kSigmoid:
-      return 1.f / (1.f + expf(-x));
-    default:  // identity
-      return x;
-  }
-}
-
-// Sum over the block; every thread receives the total. blockDim.x is a
-// multiple of 32. `scratch` holds one partial per warp.
-__device__ float block_sum(float v, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();  // the previous call's readers are done with scratch
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float total = 0.f;
-  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) total += scratch[i];
-  return total;
-}
+using vct::activate;
+using vct::block_sum;
 
 template <typename T, bool kResident>
 __global__ void __launch_bounds__(kMaxThreads)

@@ -2,15 +2,16 @@
 dispatch rules pick them.
 
 The CUDA C++ sources live in ``vae_cyclegan_tpu_torch/csrc/``. At first use
-:func:`load` compiles them with one ``nvcc`` call for ``sm_90a`` into a shared
-library with a plain C interface, ``build/kernels/vct_kernels_<hash>.so`` at
+:func:`load` compiles them for ``sm_90a``, one ``nvcc`` process per source,
+all started together, and links them into one shared library with a plain C
+interface, ``build/kernels/vct_kernels_<hash>.so`` at
 the repository root (keyed by a hash of the sources and flags, so an edited
 source rebuilds), and opens it with ``ctypes``. Nothing is built or imported
 when this module is imported: the CPU tests import every module, and the CPU
 has no ``nvcc``.
 
 The wrappers that launch the kernels live next to their plain PyTorch
-versions: ``ops.instance_norm.in_act_cuda``, and
+versions: ``ops.instance_norm.in_act_cuda`` and ``in_act_tiled_cuda``, and
 ``ops.starved_conv.reflect_conv_cuda``, ``zero_conv_cuda`` and ``dw_cuda``.
 """
 
@@ -31,7 +32,7 @@ SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -41,6 +42,12 @@ _SIGNATURES = {
     # (x, y, planes, hw, dtype, act, act_norm, eps, stream)
     "vct_in_act": (_I, [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I,
                         _I, ctypes.c_float, _P]),
+    # (planes, hw) -> floats of scratch, or -1
+    "vct_in_act_tiled_scratch_floats": (ctypes.c_longlong,
+                                        [ctypes.c_longlong] * 2),
+    # (x, y, scratch, planes, hw, dtype, act, act_norm, eps, stream)
+    "vct_in_act_tiled": (_I, [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                              _I, _I, _I, ctypes.c_float, _P]),
     # (x, w, y, n, cin, cout, h, w, k, mode, dtype, stream)
     "vct_starved_conv": (_I, [_P, _P, _P] + [_I] * 8 + [_P]),
     # (n, cin, cout, h, w, k) -> floats of scratch, or -1
@@ -93,17 +100,31 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     nvcc = _nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)
+    try:
+        # one nvcc per source, all started together, then one link
+        objs, procs = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            objs.append(f"{tmp}.{src.stem}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        runs = [(cmd, proc.communicate()[0], proc.returncode)
+                for cmd, proc in procs]
+        link = [nvcc, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        runs.append((link, proc.stdout + proc.stderr, proc.returncode))
+        for cmd, out, rc in runs:
+            if rc != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = "".join(out for _, out, _ in runs)
     return so
 
 
@@ -141,7 +162,8 @@ def record_sites() -> Iterator[List[Site]]:
     """Collect ``(kind, shape, dtype, k, cin, cout, act, order)`` for every
     call whose dispatch rule picks a kernel while the block is active,
     whatever the tensor's device (``meta`` included, where the plain
-    version then runs). ``kind`` is ``"in_act"``, ``"starved_conv"`` (the
+    version then runs). ``kind`` is ``"in_act"``, ``"in_act_tiled"``,
+    ``"starved_conv"`` (the
     reflect forward), ``"starved_conv_dx"`` (the zero_same core of the
     input gradient) or ``"starved_conv_dw"`` (the weight gradient).
     ``shape`` is the NCHW shape of the kernel's first input (x, or for dx

@@ -11,7 +11,8 @@ Shapes at image_size=256:
 Submodule names follow the reference's torch modules (``model.0``,
 ``muConv``, ``logvarConv.1``, ``model.4.weight_orig``, ...), so
 ``state_dict`` keys match the keys ``vae_cyclegan_tpu/utils/torch_import.py``
-maps.
+maps. ``instance_norm`` is the configuration's InstanceNorm mode, passed to
+every block (``ModelConfig.instance_norm``).
 """
 
 from __future__ import annotations
@@ -31,16 +32,18 @@ from vae_cyclegan_tpu_torch.models.blocks import (
     UBlock,
 )
 from vae_cyclegan_tpu_torch.ops import kaiming_normal_fan_out, spectral_normalize
+from vae_cyclegan_tpu_torch.ops.starved_conv import supported
 
 
 class Encoder(nn.Module):
     """CaSb(3->w, k7) -> D x4 (w->2w->4w->8w->16w) -> R(16w)."""
 
     def __init__(self, base_width: int = 64,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 instance_norm: str = "auto"):
         super().__init__()
         w = base_width
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=device, instance_norm=instance_norm)
         self.model = nn.Sequential(
             CaSb(3, w, 7, 1, 3, **kw),
             DBlock(w, w * 2, **kw),
@@ -56,13 +59,24 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     """R(16w) -> U x4 (16w->8w->4w->2w->w) -> CaSb(w->3, k7, Identity, no
-    norm). The output is unbounded; callers clip for display."""
+    norm). The output is unbounded; callers clip for display.
+
+    Under "tiled", U4's InstanceNorm takes the plain version wherever the
+    JAX package hands U4 -> IN -> tail over channel-major: when both U4's
+    conv and the tail's are starved-conv shapes (its ``cm_engaged``, here
+    ``starved_conv.supported``, on shapes alone, so the same on every
+    device). JAX normalizes that site on XLA. Under "auto" the slab rule
+    decides that site, as it always has (at full width it is plain either
+    way)."""
 
     def __init__(self, base_width: int = 64, out_channels: int = 3,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 instance_norm: str = "auto"):
         super().__init__()
         w = base_width
-        kw = dict(dtype=dtype, device=device)
+        self.dtype = dtype
+        self.instance_norm = instance_norm
+        kw = dict(dtype=dtype, device=device, instance_norm=instance_norm)
         self.model = nn.Sequential(
             RBlock(w * 16, **kw),
             UBlock(w * 16, w * 8, **kw),
@@ -73,8 +87,23 @@ class Decoder(nn.Module):
                  use_norm=False, **kw),
         )
 
+    def _u4_norm(self, x: torch.Tensor) -> str:
+        """U4's InstanceNorm mode for U4's input x (before its shuffle)."""
+        if self.instance_norm != "tiled":
+            return self.instance_norm
+        u4, tail = self.model[4].conv.weight, self.model[5].conv.weight
+        n, _, h, w = x.shape
+        dtype = self.dtype or x.dtype
+        cm = (supported((n, u4.shape[1], 2 * h, 2 * w), u4.shape, dtype)
+              and supported((n, tail.shape[1], 2 * h, 2 * w), tail.shape,
+                            dtype))
+        return "plain" if cm else "tiled"
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x)
+        for block in self.model[:4]:
+            x = block(x)
+        x = self.model[4](x, self._u4_norm(x))
+        return self.model[5](x)
 
 
 class VariationalEncoderBlock(nn.Module):
@@ -127,10 +156,11 @@ class AutoencoderNet(nn.Module):
     """Encoder -> Decoder."""
 
     def __init__(self, base_width: int = 64,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 instance_norm: str = "auto"):
         super().__init__()
-        self.encoder = Encoder(base_width, dtype, device)
-        self.decoder = Decoder(base_width, 3, dtype, device)
+        self.encoder = Encoder(base_width, dtype, device, instance_norm)
+        self.decoder = Decoder(base_width, 3, dtype, device, instance_norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.encoder(x))
@@ -141,14 +171,15 @@ class VariationalAutoencoderNet(nn.Module):
     (Gx, mu, logvar)."""
 
     def __init__(self, latent_dim: int = 64, base_width: int = 64,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 instance_norm: str = "auto"):
         super().__init__()
-        self.encoder = Encoder(base_width, dtype, device)
+        self.encoder = Encoder(base_width, dtype, device, instance_norm)
         self.variational_encoder_block = VariationalEncoderBlock(
             base_width * 16, latent_dim, dtype, device)
         self.variational_decoder_block = VariationalDecoderBlock(
             latent_dim, base_width * 16, dtype, device)
-        self.decoder = Decoder(base_width, 3, dtype, device)
+        self.decoder = Decoder(base_width, 3, dtype, device, instance_norm)
 
     def forward(self, x: torch.Tensor, eps: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
@@ -176,9 +207,11 @@ class SpectralConv(nn.Module):
     call reads them."""
 
     def __init__(self, cin: int, features: int, kernel_size: int,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 kernel_init_nonlinearity: str = "leaky_relu"):
         super().__init__()
         self.dtype = dtype
+        self.kernel_init_nonlinearity = kernel_init_nonlinearity
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.weight_orig = nn.Parameter(torch.empty(
             features, cin, kernel_size, kernel_size, device=device))
@@ -188,10 +221,11 @@ class SpectralConv(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Kaiming-normal fan_out weight, zero bias, unit-normal u and v,
-        drawn from `generator` in that order."""
-        self.weight_orig.copy_(kaiming_normal_fan_out(self.weight_orig.shape,
-                                                      generator))
+        """Kaiming-normal fan_out weight (the gain of
+        `kernel_init_nonlinearity`), zero bias, unit-normal u and v, drawn
+        from `generator` in that order."""
+        self.weight_orig.copy_(kaiming_normal_fan_out(
+            self.weight_orig.shape, generator, self.kernel_init_nonlinearity))
         self.bias.zero_()
         self.weight_u.copy_(_unit_normal(self.weight_u.numel(), generator))
         self.weight_v.copy_(_unit_normal(self.weight_v.numel(), generator))
@@ -212,21 +246,28 @@ class Discriminator(nn.Module):
     without norm) -> SpectralConv(8w->1, k=final_kernel) -> (B,).
 
     ``final_kernel`` is ``image_size // 16``. Every conv weight is drawn
-    Kaiming-normal with the ReLU gain, as the composites' re-init does
-    (CycleVAEGAN among them)."""
+    Kaiming-normal with the gain of `init_nonlinearity`: the reference's own
+    leaky_relu (a = 0.2), which VAEGAN keeps, or relu, which the composites
+    that re-initialize all their children (AEGAN, CycleAEGAN, CycleVAEGAN)
+    give it."""
 
     def __init__(self, final_kernel: int = 16, base_width: int = 64,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 init_nonlinearity: str = "leaky_relu",
+                 instance_norm: str = "auto"):
         super().__init__()
         w = base_width
         common = dict(kernel_size=4, stride=2, padding=1,
-                      activation="LeakyReLU", dtype=dtype, device=device)
+                      activation="LeakyReLU", dtype=dtype, device=device,
+                      kernel_init_nonlinearity=init_nonlinearity,
+                      instance_norm=instance_norm)
         self.model = nn.Sequential(
             CaSb(3, w, use_norm=False, **common),
             CaSb(w, w * 2, **common),
             CaSb(w * 2, w * 4, **common),
             CaSb(w * 4, w * 8, **common),
-            SpectralConv(w * 8, 1, final_kernel, dtype, device),
+            SpectralConv(w * 8, 1, final_kernel, dtype, device,
+                         init_nonlinearity),
         )
 
     def forward(self, x: torch.Tensor,
@@ -235,3 +276,15 @@ class Discriminator(nn.Module):
             x = block(x)
         x = self.model[4](x, update_stats)
         return x.reshape(x.shape[0])
+
+    def spectral_state(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The power-iteration vectors (u, v) as they stand. A training call
+        replaces them with fresh tensors, so the pair stays as it was."""
+        sc = self.model[4]
+        return sc.weight_u, sc.weight_v
+
+    def set_spectral_state(self, state: Tuple[torch.Tensor,
+                                              torch.Tensor]) -> None:
+        """Put back a pair that ``spectral_state`` returned."""
+        sc = self.model[4]
+        sc.weight_u, sc.weight_v = state

@@ -1,7 +1,5 @@
-"""Architecture registry: string name -> Task factory, with the ten names
-of the JAX package. Only the flagship is ported so far (serving and
-training); the others raise NotImplementedError naming their ROADMAP.md
-queue item."""
+"""Architecture registry: string name -> Task class, with the ten names of
+the JAX package, every one ported (training, evaluation and serving)."""
 
 from __future__ import annotations
 
@@ -9,18 +7,29 @@ from typing import Dict, Optional, Type
 
 from vae_cyclegan_tpu_torch.config import LossConfig, ModelConfig, OptimConfig
 from vae_cyclegan_tpu_torch.models.tasks.base import Task
-from vae_cyclegan_tpu_torch.models.tasks.cyclegan import CycleVAEGANTask
+from vae_cyclegan_tpu_torch.models.tasks.cycle import CycleAETask, CycleVAETask
+from vae_cyclegan_tpu_torch.models.tasks.cyclegan import (
+    CycleAEGANTask,
+    CycleVAEGANTask,
+)
+from vae_cyclegan_tpu_torch.models.tasks.gan import AEGANTask, VAEGANTask
+from vae_cyclegan_tpu_torch.models.tasks.simple import (
+    AutoencoderTask,
+    DoubleAETask,
+    DoubleVAETask,
+    VAETask,
+)
 
-ARCHITECTURES: Dict[str, Optional[Type[Task]]] = {
-    "autoencoder": None,
-    "doubleae": None,
-    "doublevae": None,
-    "vae": None,
-    "aegan": None,
-    "vaegan": None,
-    "cycleae": None,
-    "cyclevae": None,
-    "cycleaegan": None,
+ARCHITECTURES: Dict[str, Type[Task]] = {
+    "autoencoder": AutoencoderTask,
+    "doubleae": DoubleAETask,
+    "doublevae": DoubleVAETask,
+    "vae": VAETask,
+    "aegan": AEGANTask,
+    "vaegan": VAEGANTask,
+    "cycleae": CycleAETask,
+    "cyclevae": CycleVAETask,
+    "cycleaegan": CycleAEGANTask,
     "cyclevaegan": CycleVAEGANTask,
 }
 
@@ -28,13 +37,10 @@ ARCHITECTURES: Dict[str, Optional[Type[Task]]] = {
 def create_task(architecture: str, model: Optional[ModelConfig] = None,
                 optim: Optional[OptimConfig] = None,
                 loss: Optional[LossConfig] = None, paired: bool = True,
-                device="cpu") -> Task:
+                device="cuda") -> Task:
+    """The task of `architecture` on `device`: the card unless the caller
+    asks for another device (raises without a CUDA device)."""
     if architecture not in ARCHITECTURES:
         raise ValueError(f"Unknown architecture: {architecture}")
-    cls = ARCHITECTURES[architecture]
-    if cls is None:
-        raise NotImplementedError(
-            f"architecture {architecture!r} is not ported yet: ROADMAP.md, "
-            "'Modules to port', item 3 (the other nine architectures)")
-    return cls(model=model, optim=optim, loss=loss, paired=paired,
-               device=device)
+    return ARCHITECTURES[architecture](model=model, optim=optim, loss=loss,
+                                       paired=paired, device=device)

@@ -2,26 +2,40 @@
 device, their weights and optimizers, and exposes the protocol
 
     init(seed)                                   draw fresh weights
-    train_step(batch, eps=None, generator=None)  -> metrics (one G/D step)
+    train_step(batch, eps=None, generator=None)  -> metrics (one step)
     eval_step(batch, eps=None, generator=None)   -> metrics + images
     generate(batch, generator=None, eps=None)    -> Gx, NHWC
 
 Counterpart of ``vae_cyclegan_tpu/models/tasks/base.py``. The JAX task is
-pure and threads a TrainState; here the task holds the state: the networks'
+pure and threads a ``TrainState`` (``vae_cyclegan_tpu/models/state.py``),
+which has no counterpart here: the task holds the state, the networks'
 parameters and spectral buffers (``state_dict``) and the Adam states of its
 optimizers. Batches are NHWC, as in the JAX package.
+
+A task runs on the card unless the caller asks for another device: the
+default device is ``cuda``, and constructing a task there without a CUDA
+device raises.
+
+Reparameterization noise: each task names its variational generator passes
+in call order (``train_passes``, ``eval_passes``). ``eps`` is then a list of
+NHWC noise tensors, one per pass in that order, and ``generate``'s ``eps``
+the one of its first pass; without them the noise is drawn from
+``generator`` (or the device's default one).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Mapping, Optional, Sequence
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from vae_cyclegan_tpu_torch.config import LossConfig, ModelConfig, OptimConfig
 from vae_cyclegan_tpu_torch.models.blocks import ReflectConv
-from vae_cyclegan_tpu_torch.models.networks import SpectralConv
+from vae_cyclegan_tpu_torch.models.networks import (
+    SpectralConv,
+    VariationalAutoencoderNet,
+)
 
 
 class Task:
@@ -31,23 +45,39 @@ class Task:
     name: str = "base"
     #: whether eval_step emits a second image stream 'Fy' (Cycle/Double archs)
     has_fy: bool = False
+    #: the variational generator passes of train_step / eval_step, in order
+    train_passes: Tuple[str, ...] = ()
 
     def __init__(self, model: Optional[ModelConfig] = None,
                  optim: Optional[OptimConfig] = None,
                  loss: Optional[LossConfig] = None, paired: bool = True,
-                 device="cpu"):
+                 device="cuda"):
         self.mc = model or ModelConfig()
         self.oc = optim or OptimConfig()
         self.lc = loss or LossConfig()
         self.paired = paired
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{self.name}: no CUDA device (the tasks run on the card by "
+                "default); pass device='cpu' to run on the CPU")
         #: the task's networks; their state_dict keys carry the reference's
         #: prefixes ("G.", "F.", "DX.", ...)
         self.nets = nn.ModuleDict()
 
+    @property
+    def eval_passes(self) -> Tuple[str, ...]:
+        return self.train_passes
+
+    def _net_kw(self) -> dict:
+        """Constructor arguments every network of the task shares."""
+        return dict(dtype=self.mc.dtype, device=self.device,
+                    instance_norm=self.mc.instance_norm)
+
     def init(self, seed: int) -> None:
-        """Fresh weights: every conv weight Kaiming-normal (fan_out, relu
-        gain, as the composites' re-init), every bias zero, the spectral
+        """Fresh weights: every conv weight Kaiming-normal (fan_out, with
+        its module's gain: relu, or leaky_relu for the discriminator the
+        reference leaves at its own init), every bias zero, the spectral
         vectors unit-normal, drawn in state_dict order from one CPU
         generator seeded with `seed`."""
         gen = torch.Generator().manual_seed(seed)
@@ -86,11 +116,55 @@ class Task:
             p.grad = None
         return 0.0 if finite else 1.0
 
+    def _step(self, optimizer: torch.optim.Optimizer, loss: torch.Tensor,
+              params: Sequence[nn.Parameter]) -> float:
+        """The gradient of `loss` over `params`, then ``_finite_update``."""
+        grads = torch.autograd.grad(loss, params)
+        return self._finite_update(optimizer, loss, params, grads)
+
+    def _scalars(self, metrics: Mapping[str, torch.Tensor],
+                 nan: float) -> Dict[str, torch.Tensor]:
+        """A train_step's metrics as detached 0-d f32 tensors on the device,
+        with 'nan_detected'."""
+        out = {k: v.detach().float() for k, v in metrics.items()}
+        out["nan_detected"] = torch.tensor(nan, device=self.device)
+        return out
+
     def _nchw(self, images) -> torch.Tensor:
         """An NHWC float batch (numpy or torch) as an f32 NCHW tensor on the
         task's device."""
         t = torch.as_tensor(images).to(self.device, torch.float32)
         return t.permute(0, 3, 1, 2).contiguous()
+
+    @staticmethod
+    def _nhwc(t: torch.Tensor) -> torch.Tensor:
+        return t.permute(0, 2, 3, 1)
+
+    def _eps(self, eps: Optional[List],
+             passes: Sequence[str]) -> List[Optional[torch.Tensor]]:
+        """The noise of `passes` as NCHW tensors on the device, or Nones (the
+        networks then draw it)."""
+        if eps is None:
+            return [None] * len(passes)
+        if len(eps) != len(passes):
+            raise ValueError(f"{self.name}: {len(eps)} eps tensors, expected "
+                             f"{len(passes)} ({', '.join(passes)})")
+        return [self._nchw(e) for e in eps]
+
+    def _generate_eps(self, eps) -> Optional[torch.Tensor]:
+        """``generate``'s eps (one NHWC tensor or None) as the noise of the
+        first pass; a task without one refuses a tensor."""
+        e = self._eps(None if eps is None else [eps], self.train_passes[:1])
+        return e[0] if e else None
+
+    def _gen(self, net: nn.Module, v: torch.Tensor,
+             eps: Optional[torch.Tensor],
+             generator: Optional[torch.Generator]):
+        """(image, mu, logvar) of one generator pass; mu and logvar are None
+        for an autoencoder."""
+        if isinstance(net, VariationalAutoencoderNet):
+            return net(v, eps, generator)
+        return net(v), None, None
 
     # -- protocol ----------------------------------------------------------
 

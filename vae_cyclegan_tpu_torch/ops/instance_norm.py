@@ -7,22 +7,38 @@ eps=1e-5, no affine parameters, statistics in float32. Two orders:
   * ``act_norm``: activation then InstanceNorm (D/R/U blocks)
 
 Dispatch follows the JAX package's rule (``vae_cyclegan_tpu/ops/
-instance_norm.py::instance_norm_act``): a slab whose per-sample f32 size
-H*W*C*4 is at most 1 MB takes the kernel (``csrc/in_act.cu``, the port of
-``_pallas_in_act``); larger slabs take the plain version, as JAX sends them
-to XLA. In a generator forward the kernel runs at the five 16x16x1024 sites,
-in a discriminator forward at the 32x32x256 and 16x16x512 sites. A CUDA
-tensor that the rule selects launches the kernel or raises; CPU and ``meta``
-tensors take the plain version.
+instance_norm.py::instance_norm_act``), by ``mode``, the counterpart of its
+``use_pallas``:
 
-Both paths are ``torch.autograd.Function``s whose backward is plain torch in
+  * ``"auto"`` (JAX's None): a slab whose per-sample f32 size H*W*C*4 is at
+    most 1 MB takes the one-pass kernel (``csrc/in_act.cu``, the port of
+    ``_pallas_in_act``); larger slabs take the plain version, as JAX sends
+    them to XLA. In a generator forward the kernel runs at the five
+    16x16x1024 sites, in a discriminator forward at the 32x32x256 and
+    16x16x512 sites.
+  * ``"tiled"`` (JAX's "tiled"): every site takes the two-pass kernel
+    (``csrc/in_act_tiled.cu``, the port of ``_pallas_in_act_tiled``), whose
+    statistics are single-pass (var = max(E[h^2] - mean^2, 0)) and which
+    rounds once, after the activation and the norm. Where ``tile_rows``
+    does not divide H*W the JAX kernel falls back to ``_fused_reference``,
+    and so does the port.
+  * ``"plain"``: the plain version whatever the size; the Decoder's U4 site
+    under "tiled" when JAX hands that site over channel-major (it then
+    normalizes it on XLA).
+
+A CUDA tensor that the rule selects launches the kernel or raises; CPU and
+``meta`` tensors take the plain version.
+
+Every path is a ``torch.autograd.Function`` whose backward is plain torch in
 f32, returning x's dtype, as the JAX package's custom VJPs are jnp:
-``_InActFused`` (the kernel sites, ``_fused_tpu``) saves x and recomputes
-the statistics (``_fused_tpu_bwd``); ``_InActPlain`` (the big slabs,
-``_fused_xla``) saves (x, mean, rsqrt) and takes the analytic form
-(``_fused_xla_bwd``). Both forwards keep the centered variance of the
-serving path and of the JAX package's CPU path; on the TPU, JAX's training
-forward of the big slabs uses the single-pass E[x^2] - mean^2 (``_stats``).
+``_InActFused`` (K1's sites, ``_fused_tpu``) and ``_InActTiled`` (K2's,
+``_fused_tpu_tiled``) save x and recompute centered statistics
+(``_fused_tpu_bwd``), so K2's forward and backward use different variance
+formulas, as in JAX; ``_InActPlain`` (the big slabs, ``_fused_xla``) saves
+(x, mean, rsqrt) and takes the analytic form (``_fused_xla_bwd``). The
+plain forwards keep the centered variance of the serving path and of the
+JAX package's CPU path; on the TPU, JAX's training forward of the big slabs
+uses the single-pass E[x^2] - mean^2 (``_stats``).
 """
 
 from __future__ import annotations
@@ -44,7 +60,8 @@ ACTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "identity": lambda x: x,
 }
 ORDERS = ("norm_act", "act_norm")
-# codes of csrc/in_act.cu and csrc/common.cuh
+MODES = ("auto", "tiled", "plain")
+# codes of csrc/common.cuh
 _ACT_CODES = {"relu": 0, "leaky_relu": 1, "tanh": 2, "sigmoid": 3,
               "identity": 4}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -159,23 +176,65 @@ def slab_fits(shape) -> bool:
     return h * w * c * 4 <= SLAB_BYTES
 
 
-def in_act_cuda(x: torch.Tensor, act: str, order: str,
-                eps: float = EPS) -> torch.Tensor:
-    """Launch the IN+act kernel on a contiguous NCHW CUDA tensor (float32 or
-    bfloat16). Not differentiable itself: raises under autograd."""
+def tile_rows(hw: int, c: int) -> int:
+    """The row tile of JAX's tiled kernel (``_tile_rows``): the largest
+    power-of-two fraction of hw whose f32 tile fits the slab budget, at
+    least 8."""
+    t = hw
+    while t > 8 and t * c * 4 > SLAB_BYTES:
+        t //= 2
+    return t
+
+
+def tiles_fit(shape) -> bool:
+    """Whether JAX's tiled kernel runs for an NCHW shape: its tile divides
+    H*W. Otherwise it falls back to ``_fused_reference``."""
+    _, c, h, w = shape
+    return (h * w) % tile_rows(h * w, c) == 0
+
+
+def tiled_reference(x: torch.Tensor, act: str, order: str,
+                    eps: float = EPS) -> torch.Tensor:
+    """Plain version of the tiled kernel (``_pallas_in_act_tiled``): per
+    (n, c) plane, in f32, the sums of h and h^2 (h = act(x) for act_norm),
+    var = max(E[h^2] - mean^2, 0), and one rounding to x's dtype after the
+    activation and the norm."""
+    f = ACTS[act]
+    h = x.float()
+    if order == "act_norm":
+        h = f(h)
+    hw = h.shape[2] * h.shape[3]
+    mu = h.sum(dim=(2, 3), keepdim=True) / hw
+    var = torch.clamp_min(h.square().sum(dim=(2, 3), keepdim=True) / hw
+                          - mu.square(), 0.0)
+    y = (h - mu) * torch.rsqrt(var + eps)
+    if order == "norm_act":
+        y = f(y)
+    return y.to(x.dtype)
+
+
+def _check_kernel_input(name: str, x: torch.Tensor, act: str,
+                        order: str) -> None:
     if x.device.type != "cuda":
-        raise ValueError(f"in_act kernel needs a CUDA tensor, got {x.device}")
+        raise ValueError(f"{name} kernel needs a CUDA tensor, got {x.device}")
     if x.dtype not in DTYPE_CODES:
-        raise TypeError(f"in_act kernel takes float32/bfloat16, got {x.dtype}")
+        raise TypeError(f"{name} kernel takes float32/bfloat16, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous() or x.numel() == 0:
         raise ValueError(
-            f"in_act kernel takes a non-empty contiguous NCHW tensor, got "
+            f"{name} kernel takes a non-empty contiguous NCHW tensor, got "
             f"shape {tuple(x.shape)} strides {x.stride()}")
     if act not in _ACT_CODES or order not in ORDERS:
         raise ValueError(f"unknown activation/order {act}/{order}")
     if torch.is_grad_enabled() and x.requires_grad:
-        raise RuntimeError("in_act kernel is not differentiable itself; call "
+        raise RuntimeError(f"{name} kernel is not differentiable itself; call "
                            "instance_norm_act for the op with its gradient")
+
+
+def in_act_cuda(x: torch.Tensor, act: str, order: str,
+                eps: float = EPS) -> torch.Tensor:
+    """Launch the IN+act kernel on a contiguous NCHW CUDA tensor (float32 or
+    bfloat16). Not differentiable itself: raises under autograd."""
+    _check_kernel_input("in_act", x, act, order)
     n, c, h, w = x.shape
     lib = kernels.load()
     y = torch.empty_like(x)
@@ -192,6 +251,35 @@ def in_act_cuda(x: torch.Tensor, act: str, order: str,
 in_act_cuda.launches = 0
 
 
+def in_act_tiled_cuda(x: torch.Tensor, act: str, order: str,
+                      eps: float = EPS) -> torch.Tensor:
+    """Launch the two-pass IN+act kernel (statistics, then the norm) on a
+    contiguous NCHW CUDA tensor (float32 or bfloat16), computing
+    ``tiled_reference``. Not differentiable itself: raises under
+    autograd."""
+    _check_kernel_input("in_act_tiled", x, act, order)
+    n, c, h, w = x.shape
+    lib = kernels.load()
+    floats = lib.vct_in_act_tiled_scratch_floats(n * c, h * w)
+    if floats < 0:
+        raise ValueError(f"in_act_tiled kernel cannot take shape "
+                         f"{tuple(x.shape)}")
+    y = torch.empty_like(x)
+    scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.vct_in_act_tiled(x.data_ptr(), y.data_ptr(),
+                                  scratch.data_ptr(), n * c, h * w,
+                                  DTYPE_CODES[x.dtype], _ACT_CODES[act],
+                                  int(order == "act_norm"), float(eps), stream)
+    kernels.check(rc, "in_act_tiled")
+    in_act_tiled_cuda.launches += 1
+    return y
+
+
+in_act_tiled_cuda.launches = 0
+
+
 class _InActFused(torch.autograd.Function):
     """The kernel sites: kernel forward (plain off the card), saves x."""
 
@@ -202,6 +290,27 @@ class _InActFused(torch.autograd.Function):
         if x.device.type == "cuda":
             return in_act_cuda(x.contiguous(), act, order, eps)
         return fused_reference(x, act, order, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return fused_backward(x, g, *ctx.cfg), None, None, None
+
+
+class _InActTiled(torch.autograd.Function):
+    """The tiled configuration's sites: the two-pass kernel forward (plain
+    off the card; ``fused_reference`` where JAX's tile does not divide H*W),
+    saves x."""
+
+    @staticmethod
+    def forward(ctx, x, act, order, eps):
+        ctx.save_for_backward(x)
+        ctx.cfg = (act, order, eps)
+        if not tiles_fit(x.shape):
+            return fused_reference(x, act, order, eps)
+        if x.device.type == "cuda":
+            return in_act_tiled_cuda(x.contiguous(), act, order, eps)
+        return tiled_reference(x, act, order, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -227,15 +336,22 @@ class _InActPlain(torch.autograd.Function):
 
 
 def instance_norm_act(x: torch.Tensor, *, act: str = "relu",
-                      order: str = "norm_act",
-                      eps: float = EPS) -> torch.Tensor:
+                      order: str = "norm_act", eps: float = EPS,
+                      mode: str = "auto") -> torch.Tensor:
     """Fused InstanceNorm+activation of an NCHW tensor, in either order,
-    differentiable."""
+    differentiable; `mode` picks the path (module docstring)."""
     if act not in ACTS:
         raise NotImplementedError(f"Activation not implemented: {act}")
     if order not in ORDERS:
         raise ValueError(f"unknown order {order}")
-    if slab_fits(x.shape):
+    if mode not in MODES:
+        raise ValueError(f"unknown instance norm mode {mode}")
+    if mode == "tiled":
+        if tiles_fit(x.shape):
+            kernels.note_site("in_act_tiled", x.shape, x.dtype, act=act,
+                              order=order)
+        return _InActTiled.apply(x, act, order, eps)
+    if mode == "auto" and slab_fits(x.shape):
         kernels.note_site("in_act", x.shape, x.dtype, act=act, order=order)
         return _InActFused.apply(x, act, order, eps)
     return _InActPlain.apply(x, act, order, eps)

@@ -1,9 +1,9 @@
 """Carry JAX package weights into the port.
 
 The reverse of ``vae_cyclegan_tpu/utils/torch_import.py``: a Flax ``params``
-tree (and, for the discriminators, the ``spectral`` collection), as nested
-dicts of numpy arrays, becomes a ``state_dict`` whose keys are the
-reference's torch keys (``encoder.model.0.conv.weight``, ...,
+tree of any of the ten tasks (and, for the discriminators, the ``spectral``
+collection), as nested dicts of numpy arrays, becomes a ``state_dict`` whose
+keys are the reference's torch keys (``encoder.model.0.conv.weight``, ...,
 ``model.4.weight_orig``, ``model.4.weight_u``, ``model.4.weight_v``).
 Conv kernels go from Flax HWIO to torch OIHW; the spectral v goes from the
 JAX package's (kH, kW, I) flattening to torch's (I, kH, kW). The trees are
@@ -50,6 +50,22 @@ _VAE = {
     "decoder": _DECODER,
 }
 _AUTOENCODER = {"encoder": _ENCODER, "decoder": _DECODER}
+_DOUBLE_AE = {"encoder": _ENCODER, "decoder_A": _DECODER,
+              "decoder_B": _DECODER}
+_DOUBLE_VAE = {
+    "encoder": _ENCODER,
+    "vae_encoder_block_A": _VAR_ENCODER,
+    "vae_encoder_block_B": _VAR_ENCODER,
+    "vae_decoder_block_A": _VAR_DECODER,
+    "vae_decoder_block_B": _VAR_DECODER,
+    "decoder_A": _DECODER,
+    "decoder_B": _DECODER,
+}
+#: the networks a generator tree can hold, by their top-level modules
+_NETS = (_AUTOENCODER, _VAE, _DOUBLE_AE, _DOUBLE_VAE)
+#: a task tree's networks: generators and discriminators
+_GENERATORS = ("G", "F")
+_DISCRIMINATORS = ("D", "DX", "DY")
 
 
 _DISCRIMINATOR = {f"CaSb_{i}": {"ReflectConv_0": f"model.{i}.conv"}
@@ -104,28 +120,33 @@ def discriminator_from_jax(params: Mapping, spectral: Mapping
 
 def params_from_jax(tree: Mapping, spectral: Optional[Mapping] = None
                     ) -> Dict[str, torch.Tensor]:
-    """state_dict for the port from a Flax params tree: one generator's tree
-    (VariationalAutoencoderNet or AutoencoderNet); ``{"G": ..., "F": ...}``
-    of two, which get the "G." / "F." prefixes; or a cycle-GAN task's
-    ``{"G", "F", "DX", "DY"}`` with its ``spectral`` collection ``{"DX":
-    ..., "DY": ...}``, the discriminators under "DX." / "DY."."""
+    """state_dict for the port from a Flax params tree, any task's
+    ``state.params`` with its ``state.spectral``:
+
+      * one network's tree (AutoencoderNet, VariationalAutoencoderNet,
+        DoubleAENet or DoubleVAENet), or ``{"model": ...}`` of one (the
+        non-adversarial single-network tasks): no prefix;
+      * ``{"G", "F"}``, ``{"G", "D"}`` or ``{"G", "F", "DX", "DY"}``: each
+        network under its key as prefix ("G.", "DX.", ...), the
+        discriminators with their entries of the ``spectral`` collection."""
+    if set(tree) == {"model"}:
+        return params_from_jax(tree["model"])
     out: Dict[str, torch.Tensor] = {}
-    if set(tree) in ({"G", "F"}, {"G", "F", "DX", "DY"}):
-        for key in ("G", "F"):
-            for name, value in params_from_jax(tree[key]).items():
-                out[f"{key}.{name}"] = value
-        for key in sorted(set(tree) - {"G", "F"}):
-            if spectral is None:
+    if "G" in tree and set(tree) <= set(_GENERATORS + _DISCRIMINATORS):
+        for key, sub in tree.items():
+            if key in _GENERATORS:
+                sd = params_from_jax(sub)
+            elif spectral is None:
                 raise KeyError(f"{key}: the discriminators need the spectral "
                                "collection")
-            for name, value in discriminator_from_jax(
-                    tree[key], spectral[key]).items():
-                out[f"{key}.{name}"] = value
+            else:
+                sd = discriminator_from_jax(sub, spectral[key])
+            out.update((f"{key}.{name}", value) for name, value in sd.items())
         return out
-    nets = _VAE if "variational_encoder_block" in tree else _AUTOENCODER
-    if set(tree) != set(nets):
-        raise KeyError(f"params: got networks {sorted(tree)}, expected "
-                       f"{sorted(nets)}")
-    for net, table in nets.items():
-        _walk(tree[net], table, f"{net}.", out)
-    return out
+    for nets in _NETS:
+        if set(tree) == set(nets):
+            for net, table in nets.items():
+                _walk(tree[net], table, f"{net}.", out)
+            return out
+    raise KeyError(f"params: got networks {sorted(tree)}, expected those of "
+                   f"one of {[sorted(nets) for nets in _NETS]}")
