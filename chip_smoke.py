@@ -38,7 +38,14 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               derive from the JAX TPU trace), eval_step, generate, a step
               time; and one f32 step each on the card against the port's CPU
               step at image 64, base 16
-  8. times:   kernel vs plain vs the library call (CUDA events), each
+  8. experiments: the four conv prototypes of experiments/ (K5-K8): each
+              kernel against its plain version at the prototypes' shapes
+              (batch 24, bf16) and at edge shapes (f32 and bf16), bit for bit
+              on a second launch, R not dividing h refused; then each
+              prototype's entry point (``main``) at its default batch, 24,
+              whose calls must equal its kernel's launches; kernel, plain
+              version and library call timed at the prototypes' shapes
+  9. times:   kernel vs plain vs the library call (CUDA events), each
               kernel's bound (bytes over HBM bandwidth or operations over
               the peak rate, whichever is larger), the two IN kernels and
               the plain versions at every tiled site, request latency per
@@ -69,6 +76,16 @@ import torch.nn.functional as F
 
 from vae_cyclegan_tpu_torch import kernels
 from vae_cyclegan_tpu_torch.config import ModelConfig
+from vae_cyclegan_tpu_torch.experiments import (
+    conv_proto,
+    dw_dot_probe,
+    lowcin_conv2,
+    lowcin_conv3,
+)
+from vae_cyclegan_tpu_torch.experiments.common import (
+    conv_operands,
+    reflect_conv_reference,
+)
 from vae_cyclegan_tpu_torch.inference import run_inference
 from vae_cyclegan_tpu_torch.models.tasks import ARCHITECTURES, create_task
 from vae_cyclegan_tpu_torch.ops.instance_norm import (
@@ -200,6 +217,33 @@ IN_OPS_PER_ELEMENT = 6
 # than rounding (1e-6): the generator step's gradient is chaotic in f32 at
 # random weights (the JAX package's own f32 and f64 gradients differ by
 # 4-60% per tensor at 32-128 px), so some signs flip, but few
+# the conv prototypes' kernels (K5-K8), each wrapper with its launch count,
+# and their names in the summary line
+EXP_WRAPPERS = (conv_proto.conv_proto_cuda, lowcin_conv2.lowcin_conv_cm_cuda,
+                lowcin_conv3.lowcin_conv_nhwc_cuda, dw_dot_probe.dot_probe_cuda)
+EXP_NAMES = ("conv_proto", "lowcin_conv_cm", "lowcin_conv_nhwc", "dot_probe")
+# the prototypes' conv kernels: (name, entry point module, wrapper, plain
+# version in the kernel's own output layout, the TPU kernel)
+EXP_CONVS = (
+    ("conv_proto", conv_proto, conv_proto.conv_proto_cuda,
+     reflect_conv_reference, "experiments/pallas_conv_proto.py:51"),
+    ("lowcin_conv_cm", lowcin_conv2, lowcin_conv2.lowcin_conv_cm_cuda,
+     lowcin_conv2.lowcin_conv_cm_reference, "experiments/pallas_conv2.py:85"),
+    ("lowcin_conv_nhwc", lowcin_conv3, lowcin_conv3.lowcin_conv_nhwc_cuda,
+     reflect_conv_reference, "experiments/pallas_conv3.py:87"),
+)
+# each conv kernel's CUDA function, as the profiler names it
+EXP_KERNEL_NAMES = {"conv_proto": "conv_proto_kernel",
+                    "lowcin_conv_cm": "lowcin_kernel",
+                    "lowcin_conv_nhwc": "lowcin_kernel"}
+EXP_BATCH = 24   # the prototypes' batch
+# edge shapes (h, w, cin, cout, k, R): k = 7, 5, 3; cin = 3, 5, 8; widths
+# off the multiple of 8; two R per shape; cout = 3 takes the narrow tiles
+EXP_EDGES = [(16, 20, 3, 8, 7, 8), (16, 20, 3, 8, 7, 16), (24, 30, 5, 6, 5, 8),
+             (24, 30, 5, 6, 5, 12), (32, 36, 8, 16, 3, 16),
+             (32, 36, 8, 16, 3, 4), (16, 24, 64, 3, 7, 8)]
+# K8's edges (mk, nk, kk, steps): both tile orientations, ragged M, N, K
+PROBE_EDGES = [(24, 40, 100, 3), (40, 24, 77, 2)]
 STEP_METRIC_RTOL = 2e-3
 STEP_SPECTRAL_ATOL = 1e-5
 STEP_PARAM_SHARE = 0.05
@@ -217,6 +261,13 @@ def require(cond: bool, msg: str) -> None:
 def randn(shape, seed: int, dtype=torch.float32, scale: float = 1.0):
     g = torch.Generator().manual_seed(seed)
     return (torch.randn(shape, generator=g) * scale).to(DEV, dtype)
+
+
+def dev_randn(shape, seed: int, dtype=torch.float32, scale: float = 1.0):
+    """randn drawn on the card (the prototypes' operands at batch 24 are
+    10^8 elements)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=DEV) * scale).to(dtype)
 
 
 def compare(label: str, got: torch.Tensor, want: torch.Tensor,
@@ -611,6 +662,7 @@ def phase_slice() -> dict:
         require(per == (5, 0, 2, 0, 0),
                 f"batch {x.shape[0]}: {per} launches of {KERNEL_NAMES}, "
                 "expected 5 in_act and 2 starved_conv")
+    _no_experiment_launches("slice")
     launches = {k: v for k, v in _launches().items() if v}
     say(f"slice: {len(requests)} requests (batch {BATCHES}), launches "
         f"{launches}: 5 in_act + 2 starved_conv per generator forward ok")
@@ -667,8 +719,15 @@ def _counts() -> tuple:
 
 
 def _zero_counts() -> None:
-    for fn in WRAPPERS:
+    for fn in WRAPPERS + EXP_WRAPPERS:
         fn.launches = 0
+
+
+def _no_experiment_launches(label: str) -> None:
+    """The prototypes' kernels run on no model path."""
+    stray = {n: fn.launches for n, fn in zip(EXP_NAMES, EXP_WRAPPERS)
+             if fn.launches}
+    require(not stray, f"{label}: prototype kernels launched: {stray}")
 
 
 def _launches() -> dict:
@@ -711,6 +770,7 @@ def train_path(name: str, instance_norm: str, want: tuple, steps: int,
         say(f"train {label} step {step} (bf16, batch {PATH_BATCH}): "
             f"{losses}, nan_detected 0; launches {per} ok")
     launches = _launches()
+    _no_experiment_launches(label)
     stuck = [n for n, p in task.nets.named_parameters()
              if torch.equal(p, start[n])]
     require(not stuck, f"{label}: parameters that did not move: {stuck}")
@@ -1032,6 +1092,159 @@ def phase_families(card: str) -> None:
                        flipped_share=FAMILY_FLIPPED[name])
 
 
+def phase_experiment_kernels() -> dict:
+    """K5-K8 against their plain versions on the card: the three conv
+    kernels at their prototypes' shapes (batch 24, bf16) and at EXP_EDGES
+    (bf16 and f32), K8 at the six probes (bf16) and PROBE_EDGES (bf16 and
+    f32) on all-ones operands (exact) and random ones (rtol 1e-5, with an
+    atol of 1e-5 of the largest element for the sums near zero). Every
+    kernel gives the same bits on a second launch; the conv wrappers refuse
+    an R that does not divide h."""
+    b16, f32 = torch.bfloat16, torch.float32
+    errs = dict.fromkeys(EXP_NAMES, 0.0)
+    for name, module, kernel, plain, _ in EXP_CONVS:
+        cases = [(EXP_BATCH, s, s, cin, cout, k, R, b16)
+                 for _, s, cin, cout, k, R in module.SHAPES]
+        cases += [(2, h, w, cin, cout, k, R, dtype)
+                  for h, w, cin, cout, k, R in EXP_EDGES
+                  for dtype in (b16, f32)]
+        for i, (n, h, w, cin, cout, k, R, dtype) in enumerate(cases):
+            x = dev_randn((n, h, w, cin), 1000 + i, dtype)
+            wgt = dev_randn((k, k, cin, cout), 1100 + i, dtype, 0.05)
+            label = (f"{name} x{(n, h, w, cin)} w{(k, k, cin, cout)} R{R} "
+                     f"{str(dtype)[6:]}")
+            got = kernel(x, wgt, R)
+            errs[name] = max(errs[name], compare(label, got, plain(x, wgt)))
+            require(torch.equal(kernel(x, wgt, R), got),
+                    f"{label}: a second launch gave other bits")
+            del x, wgt, got
+        x = randn((2, 16, 20, 3), 1200, f32)
+        wgt = randn((7, 7, 3, 8), 1201, f32)
+        try:
+            kernel(x, wgt, 5)
+        except ValueError as exc:
+            say(f"{name}: R=5 with h=16 refused ({exc})")
+        else:
+            raise RuntimeError(f"check failed: {name} took R=5 with h=16")
+        say(f"{name}: {len(cases)} cases, each repeated bit for bit")
+    probes = [(mk, nk, kk, steps, b16)
+              for _, mk, nk, kk, steps in dw_dot_probe.SHAPES]
+    probes += [edge + (dtype,) for edge in PROBE_EDGES for dtype in (b16, f32)]
+    for i, (mk, nk, kk, steps, dtype) in enumerate(probes):
+        for ones in (True, False):
+            label = (f"dot_probe p{(mk, kk)} g{(nk, kk)} x{steps} "
+                     f"{str(dtype)[6:]} {'ones' if ones else 'random'}")
+            if ones:
+                p = torch.ones((mk, kk), dtype=dtype, device=DEV)
+                g = torch.ones((nk, kk), dtype=dtype, device=DEV)
+            else:
+                p = dev_randn((mk, kk), 1300 + i, dtype)
+                g = dev_randn((nk, kk), 1400 + i, dtype)
+            got = dw_dot_probe.dot_probe_cuda(p, g, steps)
+            want = dw_dot_probe.dot_probe_reference(p, g, steps)
+            if ones:
+                require(torch.equal(got, want), f"{label}: not exact")
+                say(f"check {label}: exact ok")
+            else:
+                err = compare(label, got, want,
+                              tol=(1e-5 * float(want.abs().max()), 1e-5))
+                errs["dot_probe"] = max(errs["dot_probe"], err)
+            require(torch.equal(dw_dot_probe.dot_probe_cuda(p, g, steps), got),
+                    f"{label}: a second launch gave other bits")
+    say(f"dot_probe: {2 * len(probes)} cases, each repeated bit for bit")
+    return errs
+
+
+def kernel_device_ms(fn, iters: int, name: str):
+    """The profiler's device time per call of the CUDA kernels whose name
+    holds `name` (a prototype's kernel alone, without its wrapper's pads
+    and layout copies); None where the profiler saw none."""
+    events = profiled(fn, iters)[1]
+    us = sum(e.self_device_time_total for e in events
+             if name in e.key
+             and e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters if us > 0 else None
+
+
+def phase_experiments(card: str) -> dict:
+    """The prototypes' path: each entry point's ``main`` at its default
+    batch (24) on the card, with every launch count set to 0 just before it
+    and read just after; its kernel's count must equal the calls it
+    reports, every other count 0. Then each kernel, its plain version and
+    the library call timed at the prototypes' shapes: cuDNN's conv on the
+    input padded before the timed loop (channels-last memory for the NHWC
+    functions, NCHW for the channel-major one) and, for K8, `steps` calls
+    of torch.mm (which rounds each product to bf16)."""
+    mains = (conv_proto.main, lowcin_conv2.main, lowcin_conv3.main,
+             dw_dot_probe.main)
+    launches = {}
+    for name, main_fn, wrapper in zip(EXP_NAMES, mains, EXP_WRAPPERS):
+        torch.cuda.synchronize()
+        _zero_counts()
+        results = main_fn([])
+        torch.cuda.synchronize()
+        counts = dict(zip(EXP_NAMES, (fn.launches for fn in EXP_WRAPPERS)))
+        calls = sum(r["calls"] for r in results)
+        require(counts[name] == calls > 0, f"{name} main: {calls} calls, "
+                f"{counts[name]} launches")
+        require(not any(_counts()) and not any(
+            v for n, v in counts.items() if n != name),
+            f"{name} main: other kernels launched: {counts}, {_launches()}")
+        for r in results:
+            err = r.get("err", r.get("relerr"))
+            require(np.isfinite(err) and r["ms"] is not None,
+                    f"{name} main {r['name']}: err {err}, ms {r['ms']}")
+        launches[name] = counts[name]
+        say(f"experiments: {name} main at batch {EXP_BATCH}: "
+            f"{len(results)} shapes, {calls} calls = {counts[name]} "
+            "launches ok")
+
+    b16 = torch.bfloat16
+    times = {}
+
+    def show(label, t, alone):
+        say(f"time {label} bf16: kernel {t['ms']:.4f} ms (device "
+            f"{ms_text(t['device_ms'])}, of it the kernel alone "
+            f"{ms_text(alone)}), plain {t['plain_ms']:.4f} ms (device "
+            f"{ms_text(t['plain_device_ms'])}), library "
+            f"{ms_text(t['library_ms'])} ms [{card}]")
+
+    for name, module, kernel, plain, _ in EXP_CONVS:
+        total, work = None, []
+        for label, s, cin, cout, k, R in module.SHAPES:
+            x, w = conv_operands(EXP_BATCH, s, cin, cout, k, DEV, b16)
+            memory = (torch.contiguous_format if name == "lowcin_conv_cm"
+                      else torch.channels_last)
+            xp = reflect_pad(x.permute(0, 3, 1, 2), k // 2).contiguous(
+                memory_format=memory)
+            wl = w.permute(3, 2, 0, 1).contiguous(memory_format=memory)
+            t = kernel_vs_plain(lambda: kernel(x, w, R), lambda: plain(x, w),
+                                lambda: F.conv2d(xp, wl), 5)
+            show(f"{name} {label} x{tuple(x.shape)} R{R}", t,
+                 kernel_device_ms(lambda: kernel(x, w, R), 5,
+                                  EXP_KERNEL_NAMES[name]))
+            total = add_times(total, t)
+            work.append(conv_work((EXP_BATCH, cin, s, s), cout, k, (s, s),
+                                  2, 2))
+            del x, w, xp, wl
+        times[name] = {**total, **sum_bounds(work, "bf16")}
+    total, work = None, []
+    for label, mk, nk, kk, steps in dw_dot_probe.SHAPES:
+        p = torch.ones((mk, kk), dtype=b16, device=DEV)
+        g = torch.ones((nk, kk), dtype=b16, device=DEV)
+        gt = g.T
+        t = kernel_vs_plain(
+            lambda: dw_dot_probe.dot_probe_cuda(p, g, steps),
+            lambda: dw_dot_probe.dot_probe_reference(p, g, steps),
+            lambda: [torch.mm(p, gt) for _ in range(steps)], 3)
+        show(f"dot_probe {label} x{steps}", t, t["device_ms"])
+        total = add_times(total, t)
+        work.append((2 * (mk + nk) * kk + 4 * mk * nk,
+                     2.0 * mk * nk * kk * steps))
+    times["dot_probe"] = {**total, **sum_bounds(work, "bf16")}
+    return {"launches": launches, "times": times}
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
@@ -1052,7 +1265,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     times.update(phase_tiled_times(card))
     phase_families(card)
+    torch.cuda.empty_cache()
+    errs.update(phase_experiment_kernels())
+    exp = phase_experiments(card)
     conv_src = "vae_cyclegan_tpu_torch/csrc/starved_conv.cu"
+    lowcin_src = "vae_cyclegan_tpu_torch/csrc/lowcin_conv.cu"
+    sources = {"conv_proto": "vae_cyclegan_tpu_torch/csrc/conv_proto.cu",
+               "lowcin_conv_cm": lowcin_src, "lowcin_conv_nhwc": lowcin_src,
+               "dot_probe": "vae_cyclegan_tpu_torch/csrc/dot_probe.cu"}
+    replaces = {name: tpu for name, *_, tpu in EXP_CONVS}
+    replaces["dot_probe"] = "experiments/dw_dot_probe.py:25"
     summary = {"kernels": [
         {"name": "in_act", "route": "cuda",
          "source": "vae_cyclegan_tpu_torch/csrc/in_act.cu",
@@ -1088,7 +1310,15 @@ def main() -> None:
          "max_abs_err": errs["starved_conv_dw"],
          # head + U4 + tail dw at batch 4
          **measured(times["starved_conv_dw"])},
-    ]}
+    ] + [
+        {"name": name, "route": "cuda", "source": sources[name],
+         "replaces": replaces[name],
+         # the entry point's run at batch 24
+         "launches": exp["launches"][name],
+         "max_abs_err": errs[name],
+         # summed over the prototype's shapes at batch 24 (K8: its probes)
+         **measured(exp["times"][name])}
+        for name in EXP_NAMES]}
     print(json.dumps(summary), flush=True)
     print(f"card (name, power.limit): {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

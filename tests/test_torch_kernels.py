@@ -13,6 +13,13 @@ import torch
 
 from vae_cyclegan_tpu_torch import kernels
 from vae_cyclegan_tpu_torch.config import ModelConfig
+from vae_cyclegan_tpu_torch.experiments import (
+    conv_proto,
+    dw_dot_probe,
+    lowcin_conv2,
+    lowcin_conv3,
+)
+from vae_cyclegan_tpu_torch.experiments.common import reflect_conv_reference
 from vae_cyclegan_tpu_torch.models.tasks import create_task
 from vae_cyclegan_tpu_torch.ops.instance_norm import (
     fused_reference,
@@ -330,3 +337,90 @@ def test_tiled_slice_on_cuda_launches_each_picked_site_and_matches_cpu(cuda):
     assert launched == (0, sum(s[0] == "in_act_tiled" for s in sites)) != (0, 0)
     want = cpu.generate({"x": x}, eps=eps)
     torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-2)
+
+
+# the conv prototypes' kernels (K5-K7) at edge shapes, (h, w, cin, cout, k,
+# R): k = 7, 5, 3; cin = 3, 5, 8 and the paths' 32 and 64; widths off the
+# multiple of 8; two R per shape; cout = 3 takes the narrow tiles
+PROTO_CASES = [(16, 20, 3, 8, 7, 8), (16, 20, 3, 8, 7, 16),
+               (24, 30, 5, 6, 5, 8), (24, 30, 5, 6, 5, 12),
+               (32, 36, 8, 16, 3, 16), (32, 36, 8, 16, 3, 4),
+               (16, 24, 64, 3, 7, 8), (32, 32, 32, 64, 3, 16)]
+# kernel wrapper -> the plain version in the kernel's own output layout
+PROTO_KERNELS = {
+    "conv_proto": (conv_proto.conv_proto_cuda, reflect_conv_reference),
+    "lowcin_conv_cm": (lowcin_conv2.lowcin_conv_cm_cuda,
+                       lowcin_conv2.lowcin_conv_cm_reference),
+    "lowcin_conv_nhwc": (lowcin_conv3.lowcin_conv_nhwc_cuda,
+                         reflect_conv_reference),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,w,cin,cout,k,R", PROTO_CASES)
+@pytest.mark.parametrize("name", list(PROTO_KERNELS))
+def test_conv_prototype_kernel_matches_plain(cuda, name, h, w, cin, cout, k,
+                                             R, dtype):
+    """K5, K6 (channel-major, every Wp column) and K7 against their plain
+    versions; no atomics, so a second launch gives the same bits."""
+    kernel, plain = PROTO_KERNELS[name]
+    x = _randn((2, h, w, cin), 30, cuda, dtype)
+    wgt = _randn((k, k, cin, cout), 31, cuda, dtype, 0.05)
+    before = kernel.launches
+    got = kernel(x, wgt, R)
+    _assert_close(got, plain(x, wgt))
+    assert torch.equal(kernel(x, wgt, R), got)
+    assert kernel.launches == before + 2
+
+
+@pytest.mark.parametrize("name", list(PROTO_KERNELS))
+def test_conv_prototype_kernels_refuse_what_they_do_not_take(cuda, name):
+    kernel = PROTO_KERNELS[name][0]
+    x = _randn((2, 16, 20, 3), 32, cuda, torch.float32)
+    wgt = _randn((7, 7, 3, 8), 33, cuda, torch.float32)
+    with pytest.raises(ValueError, match="does not divide"):
+        kernel(x, wgt, 5)
+    with pytest.raises(ValueError, match="reflect pad"):
+        kernel(x[:, :, :3].contiguous(), wgt, 8)
+    with pytest.raises(TypeError):
+        kernel(x, wgt.bfloat16(), 8)
+    with pytest.raises(ValueError):
+        kernel(x.transpose(1, 2), wgt, 8)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        kernel(x, wgt.requires_grad_(), 8)
+
+
+# (mk, nk, kk, steps): the two tile orientations, ragged M, N and K
+PROBE_CASES = [(24, 40, 100, 3), (40, 24, 77, 2), (24, 448, 4198, 2)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mk,nk,kk,steps", PROBE_CASES)
+def test_dot_probe_kernel_matches_plain(cuda, mk, nk, kk, steps, dtype):
+    """K8: exact on all-ones operands (every sum an integer below 2^24);
+    within rtol 1e-5 on random ones, with an atol of 1e-5 of the largest
+    element for the sums near zero; bit for bit on a second launch."""
+    p = torch.ones((mk, kk), dtype=dtype, device=cuda)
+    g = torch.ones((nk, kk), dtype=dtype, device=cuda)
+    got = dw_dot_probe.dot_probe_cuda(p, g, steps)
+    assert got.dtype == torch.float32 and got.shape == (mk, nk)
+    assert torch.equal(got, dw_dot_probe.dot_probe_reference(p, g, steps))
+    p = _randn((mk, kk), 34, cuda, dtype)
+    g = _randn((nk, kk), 35, cuda, dtype)
+    got = dw_dot_probe.dot_probe_cuda(p, g, steps)
+    want = dw_dot_probe.dot_probe_reference(p, g, steps)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(dw_dot_probe.dot_probe_cuda(p, g, steps), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dot_probe_kernel_takes_unaligned_views(cuda, dtype):
+    """Views one element into their storage (and an odd kk) are not 4-byte
+    aligned: K8 takes its two-load path there, and agrees."""
+    p = _randn((24 * 101 + 1,), 36, cuda, dtype)[1:].view(24, 101)
+    g = _randn((40 * 101 + 1,), 37, cuda, dtype)[1:].view(40, 101)
+    got = dw_dot_probe.dot_probe_cuda(p, g, 2)
+    want = dw_dot_probe.dot_probe_reference(p, g, 2)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))

@@ -1,0 +1,132 @@
+"""What the prototypes' entry points and wrappers share: the command line, the
+device rule, the tensor and shape checks, the launch of a C entry point, and
+the plain reflect conv in the prototypes' NHWC / HWIO layouts."""
+
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+
+from vae_cyclegan_tpu_torch import kernels
+from vae_cyclegan_tpu_torch.ops.instance_norm import DTYPE_CODES
+
+
+def rup(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+def parse_args(argv: Optional[List[str]], description: str,
+               batch: int = 24) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("--batch", type=int, default=batch)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels; the default) or cpu (the plain "
+                         "versions, for tests)")
+    return ap.parse_args(argv)
+
+
+def resolve_device(name: str) -> torch.device:
+    """The entry points run on the card unless asked for the CPU, and raise
+    without a CUDA device. On the card the f32 plain versions must be true
+    f32, so TF32 is turned off (cuDNN's f32 convs default to it)."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device (torch.cuda.is_available() is "
+                               "False); pass --device cpu for the plain "
+                               "versions")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return device
+
+
+def check_operands(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """The kernels' tensor rules: both on one CUDA device, contiguous, both
+    float32 or both bfloat16, and no autograd."""
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{name} kernel needs both tensors on one CUDA "
+                         f"device, got {a.device} and {b.device}")
+    if a.dtype not in DTYPE_CODES or b.dtype != a.dtype:
+        raise TypeError(f"{name} kernel takes float32/bfloat16 tensors of "
+                        f"one dtype, got {a.dtype} and {b.dtype}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{name} kernel takes contiguous tensors")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        raise RuntimeError(f"{name} kernel is not differentiable")
+
+
+def check_conv(name: str, x: torch.Tensor, w: torch.Tensor, R: int) -> None:
+    """The conv prototypes' shapes: NHWC x, HWIO w (k, k, cin, cout) with odd
+    k, a reflect pad narrower than the image, and R dividing h. The TPU grid
+    is h // R, so there R not dividing h leaves the last rows unwritten; here
+    it raises."""
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"{name}: x must be NHWC and w HWIO, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    n, h, wd, cin = x.shape
+    k, k2, cin_w, cout = w.shape
+    if k != k2 or k % 2 == 0 or cin_w != cin or n == 0 or cout == 0:
+        raise ValueError(f"{name}: cannot take x {tuple(x.shape)} with w "
+                         f"{tuple(w.shape)}")
+    if k // 2 >= min(h, wd):
+        raise ValueError(f"{name}: a reflect pad of {k // 2} needs h and w "
+                         f"above it, got {h}x{wd}")
+    if R <= 0 or h % R:
+        raise ValueError(f"{name}: R={R} does not divide h={h}")
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point `entry` with `args` and the current stream of
+    `device`; raise on the launch's CUDA error."""
+    lib = kernels.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, entry)(*args, stream)
+    kernels.check(rc, entry)
+
+
+def reflect_pad_into(dst: torch.Tensor, src: torch.Tensor, p: int, hdim: int,
+                     wdim: int) -> None:
+    """Write src reflect-padded by p (no edge repeat, as ``F.pad(mode=
+    "reflect")``) into dst, whose dims hdim and wdim are 2p longer than
+    src's: one pass over src, then the borders, rows last so that they take
+    the corners. p must be below both of src's spatial sizes."""
+    h, w = src.shape[hdim], src.shape[wdim]
+    rows = dst.narrow(hdim, p, h)
+    rows.narrow(wdim, p, w).copy_(src)
+    if p == 0:
+        return
+    rows.narrow(wdim, 0, p).copy_(src.narrow(wdim, 1, p).flip(wdim))
+    rows.narrow(wdim, p + w, p).copy_(
+        src.narrow(wdim, w - p - 1, p).flip(wdim))
+    dst.narrow(hdim, 0, p).copy_(dst.narrow(hdim, p + 1, p).flip(hdim))
+    dst.narrow(hdim, p + h, p).copy_(dst.narrow(hdim, h - 1, p).flip(hdim))
+
+
+def reflect_conv_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the three conv prototypes' function: the reflect pad
+    of NHWC x, then ``F.conv2d`` in float32 with HWIO w, then one rounding to
+    x's dtype; NHWC out. On the card the caller turns TF32 off
+    (``resolve_device``)."""
+    p = w.shape[0] // 2
+    xp = F.pad(x.permute(0, 3, 1, 2).float(), (p, p, p, p), mode="reflect")
+    y = F.conv2d(xp, w.permute(3, 2, 0, 1).float())
+    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+def conv_operands(batch: int, s: int, cin: int, cout: int, k: int,
+                  device: torch.device, dtype: torch.dtype, seed: int = 0):
+    """The scripts' operands: x (batch, s, s, cin) standard normal and w
+    (k, k, cin, cout) 0.05 x standard normal, from one seed, drawn on
+    `device`."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((batch, s, s, cin), generator=g, device=device)
+    w = torch.randn((k, k, cin, cout), generator=g, device=device) * 0.05
+    return x.to(dtype), w.to(dtype)
+
+
+def conv_gflop(batch: int, s: int, cin: int, cout: int, k: int) -> float:
+    return 2 * s * s * cin * cout * k * k * batch / 1e9

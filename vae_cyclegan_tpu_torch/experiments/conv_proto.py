@@ -1,0 +1,139 @@
+"""K5: the NHWC direct-conv prototype, a reflect SAME stride-1 conv forward as
+one implicit GEMM per (image, R-row chunk) with K = k*k*cin.
+
+Counterpart of ``experiments/pallas_conv_proto.py`` (``pallas_reflect_conv_fwd``
+``:51``, its ``pallas_call`` ``:67``; ``main`` ``:106``). The wrapper
+reflect-pads the NHWC input and adds one zero row, as the JAX wrapper does in
+XLA (``:56-62``), and ``csrc/conv_proto.cu`` does the GEMM, writing only the
+w real columns of each row (the TPU kernel writes the 2p wrap-around columns
+too and XLA slices them off).
+
+    python -m vae_cyclegan_tpu_torch.experiments.conv_proto [--batch 24] [--device cuda]
+
+prints per shape the error against the plain version, ``cur`` (the port's
+``ops.reflect_conv.reflect_conv``: pad + cuDNN, the counterpart of JAX's
+``reflect_conv``) and the kernel's time and TF/s. Fewer timed calls than the
+JAX script (ITERS per window, 20 there).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+
+from vae_cyclegan_tpu_torch.experiments.common import (
+    check_conv,
+    check_operands,
+    conv_gflop,
+    conv_operands,
+    launch,
+    parse_args,
+    reflect_conv_reference,
+    reflect_pad_into,
+    resolve_device,
+)
+from vae_cyclegan_tpu_torch.experiments.timing import median_ms, ms_text
+from vae_cyclegan_tpu_torch.ops.instance_norm import DTYPE_CODES
+from vae_cyclegan_tpu_torch.ops.reflect_conv import reflect_conv
+
+# (name, size, cin, cout, k, R): pallas_conv_proto.py:109-114
+SHAPES = [
+    ("head k7 3->64 @256", 256, 3, 64, 7, 16),
+    ("U3 64->128 @128", 128, 64, 128, 3, 32),
+    ("U4 32->64 @256", 256, 32, 64, 3, 32),
+    ("tail k7 64->3 @256", 256, 64, 3, 7, 8),
+]
+ITERS = 10
+
+
+def pad_input(x: torch.Tensor, k: int) -> torch.Tensor:
+    """NHWC x -> (n, h + 2p + 1, (w + 2p) * cin): reflect pad by p = k // 2,
+    one zero row below (the TPU kernel's last chunk reads into it), each
+    padded row one flat run; written in one pass over x."""
+    n, h, wd, cin = x.shape
+    p = k // 2
+    xp = x.new_empty((n, h + 2 * p + 1, wd + 2 * p, cin))
+    reflect_pad_into(xp[:, :h + 2 * p], x, p, 1, 2)
+    xp[:, h + 2 * p].zero_()
+    return xp.view(n, h + 2 * p + 1, (wd + 2 * p) * cin)
+
+
+def conv_proto_cuda(x: torch.Tensor, w: torch.Tensor, R: int) -> torch.Tensor:
+    """Launch K5: contiguous NHWC x and HWIO w (k, k, cin, cout) on one CUDA
+    device, both float32 or both bfloat16, odd k, R dividing h. NHWC out in
+    x's dtype. Not differentiable: raises under autograd. A block holds the
+    weights of min(cout, 64) output channels (k*k*cin values each) and a
+    k x (64 + k - 1) x cin slab in shared memory, 227 KB at most (the
+    prototype's largest, U3 and the tail, take 105 and 96 KB in bf16); a
+    shape past that fails to launch (RuntimeError)."""
+    check_operands("conv_proto", x, w)
+    check_conv("conv_proto", x, w, R)
+    n, h, wd, cin = x.shape
+    k, _, _, cout = w.shape
+    if n * (h // R) > 65535:
+        raise ValueError(f"conv_proto: {n} images x {h // R} chunks exceed "
+                         "the grid's 65535")
+    xp = pad_input(x, k)
+    # the weight as (cout, k * k * cin_g) rows, cin zero-padded to even
+    cin_g = cin + cin % 2
+    wt = F.pad(w, (0, 0, 0, cin_g - cin)).reshape(k * k * cin_g, cout)
+    wt = wt.t().contiguous()
+    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
+    launch("vct_conv_proto", x.device, xp.data_ptr(), wt.data_ptr(),
+           y.data_ptr(), n, h, wd, cin, cout, k, R, DTYPE_CODES[x.dtype])
+    conv_proto_cuda.launches += 1
+    return y
+
+
+conv_proto_cuda.launches = 0
+
+
+def pallas_reflect_conv_fwd(x: torch.Tensor, w: torch.Tensor,
+                            R: int = 32) -> torch.Tensor:
+    """Reflect SAME stride-1 conv of NHWC x with HWIO w, NHWC out: K5 on a
+    CUDA tensor, the plain version on the CPU."""
+    check_conv("conv_proto", x, w, R)
+    if x.device.type == "cuda":
+        return conv_proto_cuda(x, w, R)
+    return reflect_conv_reference(x, w)
+
+
+def main(argv: Optional[List[str]] = None, shapes=SHAPES) -> List[dict]:
+    """Per shape: the kernel against the plain version, the times of cur and
+    the kernel. Returns one dict per shape, with ``calls``, the number of
+    ``pallas_reflect_conv_fwd`` calls it made (each one K5 launch on the
+    card)."""
+    args = parse_args(argv, "K5, the NHWC conv prototype (pallas_conv_proto)")
+    device = resolve_device(args.device)
+    dtype = torch.bfloat16
+    print(f"batch={args.batch} bf16 device={device}", flush=True)
+    results = []
+    for name, s, cin, cout, k, R in shapes:
+        x, w = conv_operands(args.batch, s, cin, cout, k, device, dtype)
+        calls = [0]
+
+        def run():
+            calls[0] += 1
+            return pallas_reflect_conv_fwd(x, w, R)
+
+        got = run()
+        want = reflect_conv_reference(x, w)
+        err = float((got.float() - want.float()).abs().max())
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        wn = w.permute(3, 2, 0, 1).contiguous()
+        t_cur = median_ms(lambda: reflect_conv(xn, wn), device, ITERS)
+        t_new = median_ms(run, device, ITERS)
+        gflop = conv_gflop(args.batch, s, cin, cout, k)
+        rate = "" if t_new is None else f"  ({gflop / t_new:6.1f} TF/s)"
+        print(f"{name:20s} err={err:.2e}  cur={ms_text(t_cur)} "
+              f"kernel={ms_text(t_new)}{rate}", flush=True)
+        results.append({"name": name, "x": tuple(x.shape),
+                        "w": tuple(w.shape), "R": R, "err": err,
+                        "cur_ms": t_cur, "ms": t_new, "calls": calls[0]})
+    return results
+
+
+if __name__ == "__main__":
+    main()

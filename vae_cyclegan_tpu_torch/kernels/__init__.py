@@ -12,7 +12,12 @@ has no ``nvcc``.
 
 The wrappers that launch the kernels live next to their plain PyTorch
 versions: ``ops.instance_norm.in_act_cuda`` and ``in_act_tiled_cuda``, and
-``ops.starved_conv.reflect_conv_cuda``, ``zero_conv_cuda`` and ``dw_cuda``.
+``ops.starved_conv.reflect_conv_cuda``, ``zero_conv_cuda`` and ``dw_cuda``,
+and for the conv prototypes of ``experiments/``
+``experiments.conv_proto.conv_proto_cuda``,
+``experiments.lowcin_conv2.lowcin_conv_cm_cuda``,
+``experiments.lowcin_conv3.lowcin_conv_nhwc_cuda`` and
+``experiments.dw_dot_probe.dot_probe_cuda``.
 """
 
 from __future__ import annotations
@@ -54,6 +59,13 @@ _SIGNATURES = {
     "vct_dw_scratch_floats": (ctypes.c_longlong, [_I] * 6),
     # (x, g, dw, scratch, n, cin, cout, h, w, k, dtype, stream)
     "vct_starved_dw": (_I, [_P] * 4 + [_I] * 7 + [_P]),
+    # (xp, w, y, n, h, w, cin, cout, k, R, dtype, stream)
+    "vct_conv_proto": (_I, [_P] * 3 + [_I] * 8 + [_P]),
+    # (xf, wdx, y, n, h, w, cin_p, cout, k, R, wp, xlen, nhwc, dtype, stream)
+    "vct_lowcin_conv": (_I, [_P] * 3 + [_I] * 8 + [ctypes.c_longlong]
+                        + [_I] * 2 + [_P]),
+    # (p, g, out, mk, nk, kk, steps, dtype, stream)
+    "vct_dot_probe": (_I, [_P] * 3 + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()
