@@ -13,9 +13,10 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               the card, at the serving and training paths' shapes and at
               edge shapes: IN+act (one-pass and two-pass; the two-pass
               kernel also repeats bit for bit), the conv in its three
-              padding modes, the weight gradient, and the conv's and the
-              norm's autograd Functions against autograd of their plain
-              versions
+              padding modes (also at shapes that cross its tiles, and bit
+              for bit on a second launch), the weight gradient, and the
+              conv's and the norm's autograd Functions against autograd of
+              their plain versions
   4. slice:   the cyclevaegan generator at full width (256x256, base 64,
               latent 64, bf16, seeded random weights) serves requests at
               batch 1, 4 and 16 through run_inference; every generator
@@ -138,6 +139,13 @@ BF16_SLICE_SHARE_OF_F32_GAP = 1.0
 # tests/test_starved_conv.py CONV_CASES, (h, w, cin, cout, k)
 CONV_CASES = [(32, 40, 3, 16, 7), (32, 40, 16, 3, 7), (32, 32, 8, 16, 3),
               (32, 32, 16, 8, 3), (48, 40, 3, 8, 5), (40, 48, 4, 8, 3)]
+# the conv kernel's edges (tests/test_torch_kernels.py K3_EDGES), (h, w,
+# cin, cout, k): cout past one N tile and not a multiple of it, h not a
+# multiple of the tile's rows, w not a multiple of its columns nor (45) of
+# the 16-byte loads, with and without the taps folded into N (bf16, k *
+# cout <= 24), and cin 128 and 256, whose K loops walk two channel chunks
+K3_EDGES = [(38, 72, 16, 80, 3), (35, 45, 5, 24, 5), (35, 45, 8, 3, 5),
+            (34, 40, 128, 3, 7), (32, 40, 256, 16, 3)]
 DEV = torch.device("cuda")
 # the training path's starved convs at 256x256: (name, cin, cout, k)
 TRAIN_CONVS = [("head", 3, BASE, 7), ("U4", BASE // 2, BASE, 3),
@@ -441,6 +449,16 @@ def phase_build() -> None:
                 say(f"ptxas: {line.strip()}")
 
 
+def check_conv(label: str, launch, want: torch.Tensor) -> float:
+    """The conv kernel against its plain version, then a second launch bit
+    for bit (its K loop sums in one fixed order)."""
+    got = launch()
+    err = compare(label, got, want)
+    require(torch.equal(launch(), got),
+            f"{label}: a second launch gave other bits")
+    return err
+
+
 def phase_kernels() -> dict:
     errs = {"in_act": 0.0, "starved_conv": 0.0}
     b16, f32 = torch.bfloat16, torch.float32
@@ -470,25 +488,28 @@ def phase_kernels() -> dict:
     convs = [((PATH_BATCH, BASE // 2, IMAGE, IMAGE), (BASE, BASE // 2, 3)),
              ((PATH_BATCH, BASE, IMAGE, IMAGE), (3, BASE, 7))]
     convs += [((2, cin, h, w), (cout, cin, k))
-              for h, w, cin, cout, k in CONV_CASES]
+              for h, w, cin, cout, k in CONV_CASES + K3_EDGES]
     for i, (xs, (cout, cin, k)) in enumerate(convs):
         for dtype in (b16, f32):
             x = randn(xs, seed=100 + i, dtype=dtype)
             w = randn((cout, cin, k, k), seed=200 + i, dtype=dtype,
                       scale=(2.0 / (cout * k * k)) ** 0.5)
-            got = reflect_conv_cuda(x, w)
-            want = reflect_conv(x, w)
-            err = compare(f"starved_conv x{xs} w{(cout, cin, k, k)} "
-                          f"{str(dtype)[6:]}", got, want)
+            err = check_conv(f"starved_conv x{xs} w{(cout, cin, k, k)} "
+                             f"{str(dtype)[6:]}",
+                             lambda: reflect_conv_cuda(x, w),
+                             reflect_conv(x, w))
             errs["starved_conv"] = max(errs["starved_conv"], err)
+    say(f"starved_conv reflect: {2 * len(convs)} cases, each repeated bit "
+        "for bit")
     return errs
 
 
 def phase_train_kernels() -> dict:
     """The training path's kernels against their plain versions: the conv in
-    its zero-padded modes (dx convs: g with the rotated weight), the weight
-    gradient, and the two autograd Functions against autograd of the plain
-    ops, at the path's shapes at batch 4 and at CONV_CASES."""
+    its zero-padded modes (dx convs: g with the rotated weight; also at
+    K3_EDGES, and bit for bit on a second launch), the weight gradient, and
+    the two autograd Functions against autograd of the plain ops, at the
+    path's shapes at batch 4 and at CONV_CASES."""
     errs = {"starved_conv_zero_same": 0.0, "starved_conv_zero": 0.0,
             "starved_conv_dw": 0.0}
     b16, f32 = torch.bfloat16, torch.float32
@@ -496,6 +517,25 @@ def phase_train_kernels() -> dict:
              for _, cin, cout, k in TRAIN_CONVS]
     convs += [((2, cin, h, w), (cout, cin, k))
               for h, w, cin, cout, k in CONV_CASES]
+    edges = [((2, cin, h, w), (cout, cin, k))
+             for h, w, cin, cout, k in K3_EDGES]
+
+    def zero_modes(x, w, dtype):
+        for mode in ("zero_same", "zero"):
+            err = check_conv(f"starved_conv {mode} x{tuple(x.shape)} "
+                             f"w{tuple(w.shape)} {str(dtype)[6:]}",
+                             lambda: zero_conv_cuda(x, w, mode),
+                             zero_conv(x, w, mode))
+            key = f"starved_conv_{mode}"
+            errs[key] = max(errs[key], err)
+
+    # the edges as they are (the kernel's cout is the edge's); the path's
+    # shapes and CONV_CASES below as dx convs
+    for i, (xs, (cout, cin, k)) in enumerate(edges):
+        for dtype in (b16, f32):
+            zero_modes(randn(xs, 450 + i, dtype),
+                       randn((cout, cin, k, k), 550 + i, dtype,
+                             scale=(2.0 / (cout * k * k)) ** 0.5), dtype)
     for i, (xs, (cout, cin, k)) in enumerate(convs):
         n, _, h, w = xs
         for dtype in (b16, f32):
@@ -504,14 +544,7 @@ def phase_train_kernels() -> dict:
             g = randn((n, cout, h, w), 400 + i, dtype)
             wgt = randn((cout, cin, k, k), 500 + i, dtype,
                         scale=(2.0 / (cout * k * k)) ** 0.5)
-            wrot = rotate(wgt).contiguous()
-            for mode in ("zero_same", "zero"):
-                err = compare(f"starved_conv {mode} g{(n, cout, h, w)} "
-                              f"wrot{tuple(wrot.shape)} {str(dtype)[6:]}",
-                              zero_conv_cuda(g, wrot, mode),
-                              zero_conv(g, wrot, mode))
-                key = f"starved_conv_{mode}"
-                errs[key] = max(errs[key], err)
+            zero_modes(g, rotate(wgt).contiguous(), dtype)
             # dw: f32 out of both, summed in another order over n*h*w
             # products (the bf16 inputs are the same values in both)
             want = dw_reference(x, g, k)
@@ -537,6 +570,8 @@ def phase_train_kernels() -> dict:
             rel = 1e-4 if dtype == f32 else 1e-2
             compare(f"conv Function dw {label}", dw, dw_ref,
                     tol=(rel * float(dw_ref.abs().max()), 0.0))
+    say(f"starved_conv zero_same, zero: {4 * (len(convs) + len(edges))} "
+        "cases, each repeated bit for bit")
     # the norm's autograd Functions: a kernel site and a big slab
     for i, shape in enumerate([(PATH_BATCH, 16 * BASE, 16, 16),
                                (PATH_BATCH, BASE, IMAGE // 2, IMAGE // 2)]):
@@ -852,6 +887,28 @@ def check_f32_step(name: str, instance_norm: str, size: tuple, batch: int,
                 f"{flipped_share:g} of the elements moved the other way")
 
 
+# the hand kernels of the training path by the CUDA functions the profiler
+# names (K3: starved_conv.cu, K4: starved_dw.cu, K1: in_act.cu, K2:
+# in_act_tiled.cu)
+HAND_KERNELS = {"K3": ("::conv_kernel<",),
+                "K4": ("::dw_partial_kernel<", "::dw_reduce_kernel("),
+                "K1": ("::in_act_kernel<",),
+                "K2": ("::stats_kernel<", "::apply_kernel<")}
+
+
+def hand_kernel_ms(events, steps: int) -> dict:
+    """Device time per step of each hand kernel in a profile of `steps`
+    steps (kernels that did not run are left out)."""
+    out = {}
+    for name, keys in HAND_KERNELS.items():
+        us = sum(e.self_device_time_total for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and any(key in e.key for key in keys))
+        if us > 0:
+            out[name] = us / 1e3 / steps
+    return out
+
+
 def time_steps(task, batches, label: str, card: str,
                profile_lines=0) -> dict:
     """Training step time per batch size: median of 5 train_steps after 2
@@ -888,6 +945,12 @@ def time_steps(task, batches, label: str, card: str,
             f"{b / med * 1e3:.1f} img/s, device busy {ms_text(busy, 2)} ms "
             f"per step (idle share {idle}), peak memory {peak:.0f} MiB "
             f"[{card}]")
+        if busy is not None:
+            shares = ", ".join(
+                f"{name} {ms:.2f} ms ({ms / med:.3f} of the median)"
+                for name, ms in hand_kernel_ms(events, 2).items())
+            say(f"time train_step {label} batch {b}: device time per step by "
+                f"hand kernel: {shares} [{card}]")
         table = events.table(sort_by="self_cuda_time_total", row_limit=45)
         OUT_DIR.mkdir(exist_ok=True)
         path = OUT_DIR / f"profile_train_{label}_batch{b}.txt"

@@ -145,26 +145,44 @@ def test_in_act_tiled_function_gradients_match_plain_autograd(cuda, dtype, act,
 CONV_CASES = [(32, 40, 3, 16, 7), (32, 40, 16, 3, 7), (32, 32, 8, 16, 3),
               (32, 32, 16, 8, 3), (48, 40, 3, 8, 5), (40, 48, 4, 8, 3),
               (256, 256, 32, 64, 3), (256, 256, 64, 3, 7)]
+# shapes that cross the conv kernel's tiles (bf16: 4 output rows x 64
+# columns, f32: 2 x 32; N tiles of 8, 32 or 64 channels, or, in bf16 where
+# k * cout <= 24, the taps folded into N): cout past one N tile and not a
+# multiple of it, h not a multiple of the rows (35: odd, so not of the f32
+# rows either) and w not of the columns (45: nor of the 16-byte loads), in
+# both forms, and cin 128 (folded) and 256 (not), whose weights and slab do
+# not fit shared memory together, so the K loop walks two channel chunks
+K3_EDGES = [(38, 72, 16, 80, 3), (35, 45, 5, 24, 5), (35, 45, 8, 3, 5),
+            (34, 40, 128, 3, 7), (32, 40, 256, 16, 3)]
+
+
+def _check_conv(got, want, launch):
+    """The kernel against its plain version, and a second launch bit for
+    bit (the K loop sums in one fixed order)."""
+    _assert_close(got, want)
+    assert torch.equal(launch(), got)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("h,w,cin,cout,k", CONV_CASES)
+@pytest.mark.parametrize("h,w,cin,cout,k", CONV_CASES + K3_EDGES)
 def test_starved_conv_kernel_matches_plain(cuda, h, w, cin, cout, k, dtype):
     x = _randn((2, cin, h, w), 1, cuda, dtype)
     wgt = _randn((cout, cin, k, k), 2, cuda, dtype,
                  (2.0 / (cout * k * k)) ** 0.5)
-    _assert_close(reflect_conv_cuda(x, wgt), reflect_conv(x, wgt))
+    _check_conv(reflect_conv_cuda(x, wgt), reflect_conv(x, wgt),
+                lambda: reflect_conv_cuda(x, wgt))
 
 
 @pytest.mark.parametrize("mode", ["zero_same", "zero"])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("h,w,cin,cout,k", CONV_CASES)
+@pytest.mark.parametrize("h,w,cin,cout,k", CONV_CASES + K3_EDGES)
 def test_zero_conv_kernel_matches_plain(cuda, h, w, cin, cout, k, dtype,
                                         mode):
     x = _randn((2, cin, h, w), 11, cuda, dtype)
     wgt = _randn((cout, cin, k, k), 12, cuda, dtype,
                  (2.0 / (cout * k * k)) ** 0.5)
-    _assert_close(zero_conv_cuda(x, wgt, mode), zero_conv(x, wgt, mode))
+    _check_conv(zero_conv_cuda(x, wgt, mode), zero_conv(x, wgt, mode),
+                lambda: zero_conv_cuda(x, wgt, mode))
 
 
 # the training path's dw sites (head, U4, tail at 256x256) and CONV_CASES

@@ -3,9 +3,10 @@ tests/test_torch_tiled.py): one architecture's task run on both sides from
 the same state, and the kernel sites of its full-width training step.
 
 Small size for the numbers: image 32, base_width 8, latent_dim 8, batch 2,
-paired, f32 on the CPU, where the JAX task runs its plain XLA lowering (or,
-for the tiled configuration, its TPU dispatch with the kernels in interpret
-mode) and the port its kernels' plain versions. Inputs and noise are made
+paired unless a test asks for unpaired, f32 on the CPU, where the JAX task
+runs its plain XLA lowering (or, for the tiled configuration, its TPU
+dispatch with the kernels in interpret mode) and the port its kernels'
+plain versions. Inputs and noise are made
 with numpy and handed to both sides (``eps_queue`` on the JAX side, ``eps=``
 in the port); weights go into the port through ``params_from_jax``.
 
@@ -103,20 +104,20 @@ def xla_starved_convs(monkeypatch):
     monkeypatch.setattr(jsc, "_dw_call", dw)
 
 
-def run_pair(name, use_pallas=None):
+def run_pair(name, use_pallas=None, paired=True):
     """The JAX task and the port's from the JAX task's initial state: the
     bridge's round trip of that state, generate and eval_step on it, then
     one train_step (metrics, params and spectral trees, the port's carried
     back through the JAX package's torch importer, and the discriminators'
-    Adam first moments)."""
+    Adam first moments). `paired` goes to both tasks."""
     jtask = jax_create_task(name, model=JModelConfig(
         image_size=IMAGE, latent_dim=LATENT, base_width=BASE,
-        use_pallas=use_pallas), paired=True)
+        use_pallas=use_pallas), paired=paired)
     state = jax.jit(jtask.init_state)(jax.random.PRNGKey(0))
     init = (np_tree(state.params), np_tree(state.spectral))
     ttask = create_task(name, model=ModelConfig(
         IMAGE, LATENT, BASE, instance_norm=instance_norm_mode(use_pallas)),
-        device="cpu")
+        paired=paired, device="cpu")
     ttask.load_state_dict(params_from_jax(*init), strict=True)
     out = {"init": init, "bridge": torch_import.import_reference_state_dict(
         name, {k: v.numpy().copy() for k, v in ttask.state_dict().items()})}

@@ -11,12 +11,25 @@ import torch
 from vae_cyclegan_tpu_torch.models.tasks.base import Task
 
 
+def normalize_batch_keys(batch: Mapping) -> Mapping:
+    """Accept legacy 'A'/'B' batch keys alongside 'x'/'y' (the JAX package's
+    ``test.py::normalize_batch_keys``): 'A' becomes 'x' and 'B' 'y', y falls
+    back to A where 'B' is missing, other keys are kept. A batch that has
+    'x', or no 'A', is returned as it is (the same object)."""
+    if "x" not in batch and "A" in batch:
+        mapped = {"x": batch["A"], "y": batch.get("B", batch["A"])}
+        mapped.update({k: v for k, v in batch.items() if k not in ("A", "B")})
+        return mapped
+    return batch
+
+
 def run_inference(task: Task, batch: Mapping, seed: int = 0) -> np.ndarray:
     """``task.generate`` on batch["x"] ((B, S, S, 3) float NHWC, numpy or
-    torch), with reparameterization noise drawn from a generator seeded
-    with `seed` on the task's device. Returns the output clipped to [0, 1]
-    as a float32 NHWC numpy array."""
-    x = torch.as_tensor(batch["x"]).float()
+    torch; legacy batches keyed 'A'/'B' are mapped by
+    ``normalize_batch_keys``), with reparameterization noise drawn from a
+    generator seeded with `seed` on the task's device. Returns the output
+    clipped to [0, 1] as a float32 NHWC numpy array."""
+    x = torch.as_tensor(normalize_batch_keys(batch)["x"]).float()
     generator = torch.Generator(device=task.device).manual_seed(seed)
     out = task.generate({"x": x}, generator=generator)
     return out.float().clamp(0.0, 1.0).cpu().numpy()
