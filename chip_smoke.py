@@ -14,9 +14,10 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               edge shapes: IN+act (one-pass and two-pass; the two-pass
               kernel also repeats bit for bit), the conv in its three
               padding modes (also at shapes that cross its tiles, and bit
-              for bit on a second launch), the weight gradient, and the
-              conv's and the norm's autograd Functions against autograd of
-              their plain versions
+              for bit on a second launch), the weight gradient (also at
+              shapes that cross its tiles, bit for bit on a second launch),
+              and the conv's and the norm's autograd Functions against
+              autograd of their plain versions
   4. slice:   the cyclevaegan generator at full width (256x256, base 64,
               latent 64, bf16, seeded random weights) serves requests at
               batch 1, 4 and 16 through run_inference; every generator
@@ -54,7 +55,10 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               clock, median), device busy time and idle share, peak device
               memory, profiler summaries (a device time the profiler did not
               record in three profiler runs is printed as not measured and left
-              out of the summary; the CUDA-event times are always taken)
+              out of the summary; the CUDA-event times are always taken),
+              and per training step each hand kernel's device time (a
+              kernel that launched must show in a profile that saw the
+              device)
 
 Each main path (the serving requests, each training run) is driven with
 every launch count set to 0 just before it and read just after it. Any
@@ -146,6 +150,16 @@ CONV_CASES = [(32, 40, 3, 16, 7), (32, 40, 16, 3, 7), (32, 32, 8, 16, 3),
 # cout <= 24), and cin 128 and 256, whose K loops walk two channel chunks
 K3_EDGES = [(38, 72, 16, 80, 3), (35, 45, 5, 24, 5), (35, 45, 8, 3, 5),
             (34, 40, 128, 3, 7), (32, 40, 256, 16, 3)]
+# the dw kernel's edges (tests/test_torch_kernels.py DW_EDGES), (n, h, w,
+# cin, cout, k): cout 24 and 80 past its M tiles of 64, cin*k*k 125 and 144
+# and cin 256 (16 tiles) across its N tiles of up to 160, the folded tail's
+# wide M (cin 128: 8 tiles of up to 128 rows), odd h and w (rows staged
+# element by element), rows past one 256-column chunk (520; 264 with a last
+# chunk of 8), n = 1
+DW_EDGES = [(1, 35, 45, 5, 24, 5), (2, 38, 72, 16, 80, 3),
+            (1, 34, 40, 128, 3, 7), (2, 32, 40, 256, 16, 3),
+            (1, 35, 45, 8, 3, 5), (1, 16, 520, 4, 16, 3),
+            (1, 12, 264, 8, 3, 7)]
 DEV = torch.device("cuda")
 # the training path's starved convs at 256x256: (name, cin, cout, k)
 TRAIN_CONVS = [("head", 3, BASE, 7), ("U4", BASE // 2, BASE, 3),
@@ -504,12 +518,27 @@ def phase_kernels() -> dict:
     return errs
 
 
+def check_dw(label: str, x: torch.Tensor, g: torch.Tensor, k: int) -> float:
+    """The weight-gradient kernel against its plain version (f32 out of
+    both, summed in another order over n*h*w products; the bf16 inputs are
+    the same values in both: within 1e-4 of the largest |dw|), then a
+    second launch bit for bit (its partials are summed in a fixed order)."""
+    got = dw_cuda(x, g, k)
+    want = dw_reference(x, g, k)
+    err = compare(f"starved_conv_dw {label}", got, want,
+                  tol=(1e-4 * float(want.abs().max()), 0.0))
+    require(torch.equal(dw_cuda(x, g, k), got),
+            f"starved_conv_dw {label}: a second launch gave other bits")
+    return err
+
+
 def phase_train_kernels() -> dict:
     """The training path's kernels against their plain versions: the conv in
     its zero-padded modes (dx convs: g with the rotated weight; also at
-    K3_EDGES, and bit for bit on a second launch), the weight gradient, and
-    the two autograd Functions against autograd of the plain ops, at the
-    path's shapes at batch 4 and at CONV_CASES."""
+    K3_EDGES, and bit for bit on a second launch), the weight gradient (also
+    at DW_EDGES, bit for bit on a second launch), and the two autograd
+    Functions against autograd of the plain ops, at the path's shapes at
+    batch 4 and at CONV_CASES."""
     errs = {"starved_conv_zero_same": 0.0, "starved_conv_zero": 0.0,
             "starved_conv_dw": 0.0}
     b16, f32 = torch.bfloat16, torch.float32
@@ -536,6 +565,13 @@ def phase_train_kernels() -> dict:
             zero_modes(randn(xs, 450 + i, dtype),
                        randn((cout, cin, k, k), 550 + i, dtype,
                              scale=(2.0 / (cout * k * k)) ** 0.5), dtype)
+    for i, (n, h, w, cin, cout, k) in enumerate(DW_EDGES):
+        for dtype in (b16, f32):
+            err = check_dw(f"x{(n, cin, h, w)} g{(n, cout, h, w)} k{k} "
+                           f"{str(dtype)[6:]}", randn((n, cin, h, w), 460 + i,
+                                                      dtype),
+                           randn((n, cout, h, w), 560 + i, dtype), k)
+            errs["starved_conv_dw"] = max(errs["starved_conv_dw"], err)
     for i, (xs, (cout, cin, k)) in enumerate(convs):
         n, _, h, w = xs
         for dtype in (b16, f32):
@@ -545,12 +581,7 @@ def phase_train_kernels() -> dict:
             wgt = randn((cout, cin, k, k), 500 + i, dtype,
                         scale=(2.0 / (cout * k * k)) ** 0.5)
             zero_modes(g, rotate(wgt).contiguous(), dtype)
-            # dw: f32 out of both, summed in another order over n*h*w
-            # products (the bf16 inputs are the same values in both)
-            want = dw_reference(x, g, k)
-            scale = float(want.abs().max())
-            err = compare(f"starved_conv_dw {label}", dw_cuda(x, g, k), want,
-                          tol=(1e-4 * scale, 0.0))
+            err = check_dw(label, x, g, k)
             errs["starved_conv_dw"] = max(errs["starved_conv_dw"], err)
             # the conv's autograd Function against autograd of the plain
             # conv. bf16 dx: the fold rounds its interior and each border
@@ -571,7 +602,8 @@ def phase_train_kernels() -> dict:
             compare(f"conv Function dw {label}", dw, dw_ref,
                     tol=(rel * float(dw_ref.abs().max()), 0.0))
     say(f"starved_conv zero_same, zero: {4 * (len(convs) + len(edges))} "
-        "cases, each repeated bit for bit")
+        f"cases; starved_conv_dw: {2 * (len(convs) + len(DW_EDGES))} cases; "
+        "each repeated bit for bit")
     # the norm's autograd Functions: a kernel site and a big slab
     for i, shape in enumerate([(PATH_BATCH, 16 * BASE, 16, 16),
                                (PATH_BATCH, BASE, IMAGE // 2, IMAGE // 2)]):
@@ -889,11 +921,18 @@ def check_f32_step(name: str, instance_norm: str, size: tuple, batch: int,
 
 # the hand kernels of the training path by the CUDA functions the profiler
 # names (K3: starved_conv.cu, K4: starved_dw.cu, K1: in_act.cu, K2:
-# in_act_tiled.cu)
+# in_act_tiled.cu), and the wrappers that launch them
 HAND_KERNELS = {"K3": ("::conv_kernel<",),
-                "K4": ("::dw_partial_kernel<", "::dw_reduce_kernel("),
+                "K4": ("::dw_gemm_kernel<", "::dw_reduce_kernel("),
                 "K1": ("::in_act_kernel<",),
                 "K2": ("::stats_kernel<", "::apply_kernel<")}
+HAND_WRAPPERS = {"K3": (reflect_conv_cuda, zero_conv_cuda), "K4": (dw_cuda,),
+                 "K1": (in_act_cuda,), "K2": (in_act_tiled_cuda,)}
+
+
+def hand_launches() -> dict:
+    return {name: sum(w.launches for w in wrappers)
+            for name, wrappers in HAND_WRAPPERS.items()}
 
 
 def hand_kernel_ms(events, steps: int) -> dict:
@@ -935,8 +974,11 @@ def time_steps(task, batches, label: str, card: str,
             require(vals["nan_detected"] == 0.0, f"{label}: timed step skipped")
         med = float(np.median(lat))
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        before = hand_launches()
         busy, events = profiled(lambda: task.train_step(batch, generator=gen),
                                 2)
+        launched = [name for name, n in hand_launches().items()
+                    if n > before[name]]
         idle = "not measured" if busy is None else \
             f"{max(0.0, 1 - busy / med):.3f}"
         times[b] = med
@@ -946,9 +988,16 @@ def time_steps(task, batches, label: str, card: str,
             f"per step (idle share {idle}), peak memory {peak:.0f} MiB "
             f"[{card}]")
         if busy is not None:
+            # a kernel that launched must show in a profile that saw the
+            # device at all, or HAND_KERNELS has lost its name
+            per_kernel = hand_kernel_ms(events, 2)
+            missing = [name for name in launched if name not in per_kernel]
+            require(not missing, f"{label} batch {b}: {missing} launched in "
+                    "the profiled steps but show no device time under the "
+                    f"names {[HAND_KERNELS[m] for m in missing]}")
             shares = ", ".join(
                 f"{name} {ms:.2f} ms ({ms / med:.3f} of the median)"
-                for name, ms in hand_kernel_ms(events, 2).items())
+                for name, ms in per_kernel.items())
             say(f"time train_step {label} batch {b}: device time per step by "
                 f"hand kernel: {shares} [{card}]")
         table = events.table(sort_by="self_cuda_time_total", row_limit=45)
@@ -967,11 +1016,13 @@ def phase_train_times(card: str, tr: dict) -> dict:
     b16 = torch.bfloat16
     times = {}
 
-    def show(label, t):
+    def show(label, t, work):
+        b = bound(*work, "bf16")
         say(f"time {label} bf16: kernel {t['ms']:.4f} ms (device "
             f"{ms_text(t['device_ms'])}), plain {t['plain_ms']:.4f} ms "
             f"(device {ms_text(t['plain_device_ms'])}), library "
-            f"{ms_text(t['library_ms'])} ms [{card}]")
+            f"{ms_text(t['library_ms'])} ms, bound {b['bound_ms']:.5f} ms "
+            f"({b['bound_by']}) [{card}]")
 
     # the training kernels at the path's shapes, batch 4. The library calls:
     # the zero-padded conv is one F.conv2d (the plain version itself); the
@@ -987,21 +1038,21 @@ def phase_train_times(card: str, tr: dict) -> dict:
         t = kernel_vs_plain(lambda: zero_conv_cuda(g, wrot),
                             lambda: zero_conv(g, wrot),
                             lambda: F.conv2d(g, wrot, padding=k // 2), 10)
-        show(f"starved_conv zero_same {name} dx g{tuple(g.shape)} "
-             f"wrot{tuple(wrot.shape)}", t)
-        dx_total = add_times(dx_total, t)
         dx_work.append(conv_work(g.shape, cin, k, (IMAGE, IMAGE), 2, 2))
+        show(f"starved_conv zero_same {name} dx g{tuple(g.shape)} "
+             f"wrot{tuple(wrot.shape)}", t, dx_work[-1])
+        dx_total = add_times(dx_total, t)
         xp = reflect_pad(x, k // 2)
         t = kernel_vs_plain(
             lambda: dw_cuda(x, g, k), lambda: dw_reference(x, g, k),
             lambda: torch.nn.grad.conv2d_weight(xp, (cout, cin, k, k), g), 10)
-        show(f"starved_conv_dw {name} x{tuple(x.shape)} g{tuple(g.shape)} "
-             f"k{k}", t)
-        dw_total = add_times(dw_total, t)
         # x and g read once (bf16), dw written once (f32)
         _, ops = conv_work(x.shape, cout, k, (IMAGE, IMAGE), 2, 2)
         dw_work.append((2 * (x.numel() + g.numel()) + 4 * cout * cin * k * k,
                         ops))
+        show(f"starved_conv_dw {name} x{tuple(x.shape)} g{tuple(g.shape)} "
+             f"k{k}", t, dw_work[-1])
+        dw_total = add_times(dw_total, t)
     times["starved_conv_zero_same"] = {**dx_total,
                                        **sum_bounds(dx_work, "bf16")}
     times["starved_conv_dw"] = {**dw_total, **sum_bounds(dw_work, "bf16")}

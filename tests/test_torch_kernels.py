@@ -187,17 +187,26 @@ def test_zero_conv_kernel_matches_plain(cuda, h, w, cin, cout, k, dtype,
 
 # the training path's dw sites (head, U4, tail at 256x256) and CONV_CASES
 DW_CASES = CONV_CASES + [(256, 256, 3, 64, 7)]
+# shapes that cross the dw kernel's tiles, (n, h, w, cin, cout, k): M tiles
+# of 64 output channels (cout 24, 80: not a multiple of 16) against N tiles
+# of up to 160 (ci, dy, dx) columns (cin*k*k = 125 and 144: not a multiple
+# of 8; cin 256: 16 N tiles), or, where k * cout <= 24, the taps folded (M
+# tiles of up to 128 (dy, ci) rows: cin 128 gives 8); odd h (35) and w (45),
+# whose rows are not 16-byte aligned (staged element by element); rows past
+# one 256-column chunk (520, and 264, whose last chunk is 8 columns); n = 1
+DW_EDGES = [(1, 35, 45, 5, 24, 5), (2, 38, 72, 16, 80, 3),
+            (1, 34, 40, 128, 3, 7), (2, 32, 40, 256, 16, 3),
+            (1, 35, 45, 8, 3, 5), (1, 16, 520, 4, 16, 3),
+            (1, 12, 264, 8, 3, 7)]
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("h,w,cin,cout,k", DW_CASES)
-def test_dw_kernel_matches_plain(cuda, h, w, cin, cout, k, dtype):
+def _check_dw(n, h, w, cin, cout, k, dtype, device):
     """f32 out of both: they differ in summation order only, over n*h*w
     products (131,072 at 256x256), so the bound is relative to the largest
     weight gradient: 1e-4 of it in f32; bf16 inputs are the same values in
     both, so the same bound holds."""
-    x = _randn((2, cin, h, w), 13, cuda, dtype)
-    g = _randn((2, cout, h, w), 14, cuda, dtype)
+    x = _randn((n, cin, h, w), 13, device, dtype)
+    g = _randn((n, cout, h, w), 14, device, dtype)
     got, want = dw_cuda(x, g, k), dw_reference(x, g, k)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == torch.float32
@@ -206,6 +215,18 @@ def test_dw_kernel_matches_plain(cuda, h, w, cin, cout, k, dtype):
                                atol=1e-4 * float(want.abs().max()))
     # two passes in a fixed order: bit for bit the same on a rerun
     assert torch.equal(dw_cuda(x, g, k), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,w,cin,cout,k", DW_CASES)
+def test_dw_kernel_matches_plain(cuda, h, w, cin, cout, k, dtype):
+    _check_dw(2, h, w, cin, cout, k, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,h,w,cin,cout,k", DW_EDGES)
+def test_dw_kernel_matches_plain_at_edges(cuda, n, h, w, cin, cout, k, dtype):
+    _check_dw(n, h, w, cin, cout, k, dtype, cuda)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -313,6 +334,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         dw_cuda(x, _randn((2, 16, 32, 32), 9, cuda, torch.bfloat16), 3)
     with pytest.raises(ValueError):
         dw_cuda(x, _randn((2, 16, 32, 30), 9, cuda, torch.float32), 3)
+    # k * k > 160 with unfolded taps: one channel's taps exceed an N tile
+    with pytest.raises(ValueError):
+        dw_cuda(x, _randn((2, 16, 32, 32), 9, cuda, torch.float32), 13)
 
 
 def test_slice_on_cuda_launches_each_picked_site_and_matches_cpu(cuda):
