@@ -11,8 +11,10 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               chiprun_out/build.log)
   3. kernels: each hand-written kernel against its plain PyTorch version on
               the card, at the serving and training paths' shapes and at
-              edge shapes: IN+act (one-pass and two-pass; the two-pass
-              kernel also repeats bit for bit), the conv in its three
+              edge shapes: IN+act (K1, centered variance, and K2, single-pass;
+              both also at the edges of their regimes, in bf16 and f32 with
+              every activation and order, each case repeated bit for bit),
+              the conv in its three
               padding modes (also at shapes that cross its tiles, and bit
               for bit on a second launch), the weight gradient (also at
               shapes that cross its tiles, bit for bit on a second launch),
@@ -33,7 +35,7 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               against the port's CPU step from the same weights and noise
               (metrics, spectral vectors, parameters within one Adam step)
   6. tiled:   the same under instance_norm="tiled": each step launches the
-              two-pass IN kernel 96 times and the one-pass one never, the
+              tiled IN kernel (K2) 96 times and K1 never, the
               convs as in 5; the f32 step against the CPU's; step times
   7. families: the nine other architectures at full width, bf16, batch 4:
               two train_steps each (launches per step as the CPU site tests
@@ -50,7 +52,10 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
   9. times:   kernel vs plain vs the library call (CUDA events), each
               kernel's bound (bytes over HBM bandwidth or operations over
               the peak rate, whichever is larger), the two IN kernels and
-              the plain versions at every tiled site, request latency per
+              the plain versions at every tiled site at batch 4 and 24
+              (events, device time, the wrappers' host time per call, the
+              byte bound; F.instance_norm at the identity sites), request
+              latency per
               batch size and training step time at batch 4 and 24 (host
               clock, median), device busy time and idle share, peak device
               memory, profiler summaries (a device time the profiler did not
@@ -58,7 +63,7 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               out of the summary; the CUDA-event times are always taken),
               and per training step each hand kernel's device time (a
               kernel that launched must show in a profile that saw the
-              device)
+              device), with the IN kernels' byte bound per step
 
 Each main path (the serving requests, each training run) is driven with
 every launch count set to 0 just before it and read just after it. Any
@@ -99,6 +104,8 @@ from vae_cyclegan_tpu_torch.ops.instance_norm import (
     in_act_cuda,
     in_act_tiled_cuda,
     instance_norm_act,
+    plane_plan,
+    slab_fits,
     tiled_reference,
 )
 from vae_cyclegan_tpu_torch.ops.padding import reflect_pad
@@ -174,7 +181,7 @@ KERNEL_NAMES = ("in_act", "in_act_tiled", "starved_conv",
 # x 5 IN sites + 8 discriminator passes x 2; U4 and tail forward in each
 # generator pass; dx of U4 and the tail in every pass and of the head where
 # its input is a generator output (F(Gx), G(Fy)); dw of the three convs in
-# every pass. Under "tiled" the two-pass kernel takes 12 of a generator
+# every pass. Under "tiled" the tiled kernel takes 12 of a generator
 # pass's 13 IN sites (not U4's) and a discriminator pass's 3. The CPU site
 # tests hold the same counts against the JAX package's TPU trace
 # (tests/test_torch_train.py, test_torch_tiled.py, test_torch_families_*.py)
@@ -188,7 +195,7 @@ FAMILY_STEP_LAUNCHES = {
     "cycleaegan": (46, 0, 12, 14, 18),
 }
 TRAIN_BATCHES = (PATH_BATCH, 24)   # 24: bench.py's default batch
-# the two-pass IN kernel's sites at batch 4, (shape, act, order): the
+# the tiled IN kernel's sites at batch 4, (shape, act, order): the
 # generator's (CaSb head, D blocks, R block, U blocks) and the
 # discriminator's (its three normalized CaSb)
 TILED_SITES = [
@@ -206,9 +213,13 @@ TILED_SITES = [
     ((PATH_BATCH, 8 * BASE, IMAGE // 16, IMAGE // 16), "leaky_relu",
      "norm_act"),
 ]
-# planes that are not a multiple of the kernel's 4096-element chunk: 72x72
-# (a multiple of the 16-byte vector) and 75x67 (not even that)
+# planes of 72x72 (a multiple of the 16-byte vector) and 75x67 (not one)
 TILED_EDGES = [(2, 16, 72, 72), (2, 3, 75, 67)]
+# The IN kernels' regimes (csrc/in_plane.cuh) by bytes per plane: a warp per
+# plane up to 2 KB, a CTA per plane up to 32 KB, a thread block cluster per
+# plane up to 256 KB, a cluster looping over the plane beyond
+PLANE_LIMITS = ((2 * 1024, "warp"), (32 * 1024, "block"),
+                (256 * 1024, "cluster"))
 # the RBlocks' identity sites, where F.instance_norm computes the same
 # function as the IN kernels
 IDENTITY_SITE = (PATH_BATCH, 16 * BASE, IMAGE // 16, IMAGE // 16)
@@ -293,7 +304,10 @@ def dev_randn(shape, seed: int, dtype=torch.float32, scale: float = 1.0):
 
 
 def compare(label: str, got: torch.Tensor, want: torch.Tensor,
-            tol=None) -> float:
+            tol=None, quiet: bool = False) -> float:
+    """|got - want| <= atol + rtol |want| everywhere, got finite; prints a
+    line (only on failure when `quiet`), raises on failure, returns the
+    largest error."""
     atol, rtol = tol or TOL[want.dtype]
     require(got.shape == want.shape and got.dtype == want.dtype,
             f"{label}: {tuple(got.shape)}/{got.dtype} vs "
@@ -304,8 +318,9 @@ def compare(label: str, got: torch.Tensor, want: torch.Tensor,
         (err <= atol + rtol * w.abs()).all())
     max_err = float(err.max())
     torch.cuda.synchronize()
-    say(f"check {label}: max_abs_err={max_err:.3e} "
-        f"(atol {atol:g}, rtol {rtol:g}) {'ok' if ok else 'FAIL'}")
+    if not (quiet and ok):
+        say(f"check {label}: max_abs_err={max_err:.3e} "
+            f"(atol {atol:g}, rtol {rtol:g}) {'ok' if ok else 'FAIL'}")
     require(ok, label)
     return max_err
 
@@ -346,6 +361,21 @@ def profiled(fn, iters: int):
             return us / 1e3 / iters, events
         say(f"profiler: a session over {iters} calls saw no device time")
     return None, events
+
+
+def kernel_device_ms(fn, iters: int, keys):
+    """The device time per launch of the CUDA kernels whose profiler names
+    hold one of `keys` (a kernel alone, without its wrapper's other work),
+    over `iters` calls of `fn` under the profiler: their summed time over
+    the launches it recorded (a session can record fewer launches than were
+    made, so dividing by the calls would undercount); None where it
+    recorded none."""
+    events = profiled(fn, iters)[1]
+    hits = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(key in e.key for key in keys)]
+    n = sum(e.count for e in hits)
+    return sum(e.self_device_time_total for e in hits) / 1e3 / n if n else None
 
 
 def ms_text(ms, digits: int = 4) -> str:
@@ -408,6 +438,82 @@ def in_act_bound(shape, dtype) -> dict:
     n = int(np.prod(shape))
     size = torch.empty((), dtype=dtype).element_size()
     return bound(2 * n * size, IN_OPS_PER_ELEMENT * n, "f32")
+
+
+def plane_edges(dtype) -> list:
+    """NCHW shapes at the IN kernels' regime edges (tests/test_torch_kernels.py
+    PLANE_CASES): each threshold and one 16-byte vector either side (h = the
+    vector's elements, w = 128 k - 1, 128 k, 128 k + 1: 2, 32 and 256 KB at
+    k = 1, 16, 128), planes whose hw is not a multiple of the vector, and 11
+    and 15 planes of 16x16, which do not fill the last block of eight
+    warps."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    return ([(1, 3, vec, 128 * k + d) for k in (1, 16, 128) for d in (-1, 0, 1)]
+            + [(1, 3, 31, 33), (1, 2, 127, 129), (1, 2, 255, 257),
+               (1, 2, 363, 363), (1, 11, 16, 16), (3, 5, 16, 16)])
+
+
+def regime(hw: int, dtype) -> str:
+    nbytes = hw * torch.empty((), dtype=dtype).element_size()
+    return next((name for limit, name in PLANE_LIMITS if nbytes <= limit),
+                "stream")
+
+
+def check_in_kernel(label: str, kernel, plain, x, act: str, order: str,
+                    quiet: bool = False) -> float:
+    """An IN kernel against its plain version, then a second launch bit for
+    bit (its sums run in a fixed order, no atomics)."""
+    got = kernel(x, act, order)
+    err = compare(label, got, plain(x, act, order), quiet=quiet)
+    require(torch.equal(kernel(x, act, order), got),
+            f"{label}: a second launch gave other bits")
+    return err
+
+
+def check_in_edges(name: str, kernel, plain, seed: int) -> float:
+    """K1 or K2 at plane_edges in bf16 and f32, every activation and order:
+    the plan the library takes is the regime the thresholds name, and each
+    case passes check_in_kernel (one summary line; a failure prints its
+    case). Also the path's planes: 16x16 ... 256x256 none loops over device
+    memory, and 256x256 takes a cluster of 8 CTAs."""
+    err, n = 0.0, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        vec = 16 // torch.empty((), dtype=dtype).element_size()
+        for side in (16, 32, 64, 128, 256):
+            plan = plane_plan(side * side, dtype)
+            require(plan["regime"] == regime(side * side, dtype) != "stream"
+                    and (side < 256 or plan["cluster"] == 8),
+                    f"{name}: plan of {side}x{side} {dtype}: {plan}")
+        for shape in plane_edges(dtype):
+            hw = shape[2] * shape[3]
+            plan = plane_plan(hw, dtype, hw % vec == 0)
+            require(plan["regime"] == regime(hw, dtype),
+                    f"{name}: plan of {shape} {dtype}: {plan}")
+            x = randn(shape, seed + n, dtype, 2.0) + 0.5
+            for act in ACTS:
+                for order in ORDERS:
+                    label = (f"{name} {shape} {str(dtype)[6:]} {act}/{order} "
+                             f"({plan['regime']})")
+                    err = max(err, check_in_kernel(label, kernel, plain, x,
+                                                   act, order, quiet=True))
+                    n += 1
+    say(f"{name} at the regimes' edges: {n} cases (bf16 and f32, every "
+        f"activation and order), max_abs_err {err:.3e}, each repeated bit "
+        "for bit; path planes 16x16-128x128 on chip, 256x256 a cluster of 8")
+    return err
+
+
+def host_us(fn, iters: int) -> float:
+    """Host microseconds per call over `iters` calls without a synchronize:
+    the wrapper's own cost, while the card runs behind it (where the card is
+    the slower side, the launch queue fills and this reads the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def conv_work(x_shape, cout: int, k: int, out_hw, size: int,
@@ -493,10 +599,19 @@ def phase_kernels() -> dict:
         cases.append(((1, 3, 96, 128), dtype, "relu", "act_norm"))
     for i, (shape, dtype, act, order) in enumerate(cases):
         x = randn(shape, seed=i, dtype=dtype, scale=2.0) + 0.5
-        got = in_act_cuda(x, act, order)
-        want = fused_reference(x, act, order)
-        err = compare(f"in_act {shape} {str(dtype)[6:]} {act}/{order}",
-                      got, want)
+        err = check_in_kernel(f"in_act {shape} {str(dtype)[6:]} {act}/{order}",
+                              in_act_cuda, fused_reference, x, act, order)
+        errs["in_act"] = max(errs["in_act"], err)
+    say(f"in_act: {len(cases)} cases, each repeated bit for bit")
+    errs["in_act"] = max(errs["in_act"], check_in_edges(
+        "in_act", in_act_cuda, fused_reference, 300))
+    for dtype in (b16, f32):
+        # one element into its storage: not 16-byte aligned, one-element loads
+        x = randn((2 * 64 * 32 * 32 + 1,), 299, dtype, 2.0)[1:].view(
+            2, 64, 32, 32)
+        err = check_in_kernel(f"in_act unaligned view {tuple(x.shape)} "
+                              f"{str(dtype)[6:]} relu/act_norm", in_act_cuda,
+                              fused_reference, x, "relu", "act_norm")
         errs["in_act"] = max(errs["in_act"], err)
 
     convs = [((PATH_BATCH, BASE // 2, IMAGE, IMAGE), (BASE, BASE // 2, 3)),
@@ -625,10 +740,11 @@ def phase_train_kernels() -> dict:
 
 
 def phase_tiled_kernels() -> dict:
-    """The two-pass IN kernel against tiled_reference at every tiled site of
-    the training path (batch 4, each with its activation and order) and at
-    the edge planes with every activation and order, in bf16 and f32; a
-    second launch must give the same bits. Then its autograd Function
+    """The tiled IN kernel against tiled_reference at every tiled site of
+    the training path (batch 4, each with its activation and order), at the
+    edge planes and at the regimes' edges with every activation and order,
+    in bf16 and f32; a second launch must give the same bits. Then its
+    autograd Function
     (kernel forward, the centered backward) against autograd of
     tiled_reference at a generator site."""
     err = 0.0
@@ -645,6 +761,8 @@ def phase_tiled_kernels() -> dict:
             require(torch.equal(in_act_tiled_cuda(x, act, order), got),
                     f"{label}: a second launch gave other bits")
     say(f"in_act_tiled: {2 * len(cases)} cases, each repeated bit for bit")
+    err = max(err, check_in_edges("in_act_tiled", in_act_tiled_cuda,
+                                  tiled_reference, 700))
     shape = TILED_SITES[1][0]
     for dtype in (torch.bfloat16, torch.float32):
         for act, order in (("relu", "act_norm"), ("leaky_relu", "norm_act")):
@@ -920,12 +1038,13 @@ def check_f32_step(name: str, instance_norm: str, size: tuple, batch: int,
 
 
 # the hand kernels of the training path by the CUDA functions the profiler
-# names (K3: starved_conv.cu, K4: starved_dw.cu, K1: in_act.cu, K2:
-# in_act_tiled.cu), and the wrappers that launch them
+# names (K3: starved_conv.cu, K4: starved_dw.cu, K1: in_act.cu and K2:
+# in_act_tiled.cu, both in_plane.cuh's kernels, told apart by their variance
+# formula), and the wrappers that launch them
 HAND_KERNELS = {"K3": ("::conv_kernel<",),
                 "K4": ("::dw_gemm_kernel<", "::dw_reduce_kernel("),
-                "K1": ("::in_act_kernel<",),
-                "K2": ("::stats_kernel<", "::apply_kernel<")}
+                "K1": ("plane_kernel<vct::Centered",),
+                "K2": ("plane_kernel<vct::SinglePass",)}
 HAND_WRAPPERS = {"K3": (reflect_conv_cuda, zero_conv_cuda), "K4": (dw_cuda,),
                  "K1": (in_act_cuda,), "K2": (in_act_tiled_cuda,)}
 
@@ -966,13 +1085,19 @@ def time_steps(task, batches, label: str, card: str,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         lat = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            vals = _finite_metrics(task.train_step(batch, generator=gen))
-            torch.cuda.synchronize()
-            lat.append((time.perf_counter() - t0) * 1e3)
-            require(vals["nan_detected"] == 0.0, f"{label}: timed step skipped")
+        with kernels.record_sites() as sites:
+            for _ in range(5):
+                t0 = time.perf_counter()
+                vals = _finite_metrics(task.train_step(batch, generator=gen))
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+                require(vals["nan_detected"] == 0.0,
+                        f"{label}: timed step skipped")
         med = float(np.median(lat))
+        # the IN kernels' byte bound per step, over the sites they took
+        in_bound = {name: sum(in_act_bound(site[1], getattr(torch, site[2]))[
+            "bound_ms"] for site in sites if site[0] == kind) / len(lat)
+            for name, kind in (("K1", "in_act"), ("K2", "in_act_tiled"))}
         peak = torch.cuda.max_memory_allocated() / 2 ** 20
         before = hand_launches()
         busy, events = profiled(lambda: task.train_step(batch, generator=gen),
@@ -996,7 +1121,9 @@ def time_steps(task, batches, label: str, card: str,
                     "the profiled steps but show no device time under the "
                     f"names {[HAND_KERNELS[m] for m in missing]}")
             shares = ", ".join(
-                f"{name} {ms:.2f} ms ({ms / med:.3f} of the median)"
+                f"{name} {ms:.2f} ms ({ms / med:.3f} of the median"
+                + (f"; bound {in_bound[name]:.3f} ms" if name in in_bound
+                   else "") + ")"
                 for name, ms in per_kernel.items())
             say(f"time train_step {label} batch {b}: device time per step by "
                 f"hand kernel: {shares} [{card}]")
@@ -1144,14 +1271,16 @@ def phase_times(card: str, sl: dict) -> dict:
     return times
 
 
-def phase_tiled_times(card: str) -> dict:
-    """The two-pass IN kernel at the identity site against tiled_reference
+def phase_in_times(card: str) -> dict:
+    """The two IN kernels at the identity site against their plain versions
     and F.instance_norm (the summary line's numbers); then, at every tiled
-    site of the training path (batch 4, bf16), the two kernels and the two
-    plain versions side by side: K2, tiled_reference, the one-pass kernel
-    (which takes any plane, looping over it where it does not fit shared
-    memory) and fused_reference, the "auto" path's plain version of the
-    slabs over 1 MB."""
+    site of the training path at batch 4 and 24 (bf16; batch 24 puts the big
+    planes beyond the 50 MB L2; each loop reads the same x, so the smaller
+    ones stay in L2), K2 (every site), K1 (every site: its own path's are
+    the slabs of at most 1 MB), tiled_reference, fused_reference and, at the
+    identity sites, F.instance_norm side by side: CUDA events and device
+    time per call (the kernels' per launch the profiler recorded), the
+    kernels' host microseconds per call, and the byte bound."""
     b16 = torch.bfloat16
     x = randn(IDENTITY_SITE, 7, b16)
     t = kernel_vs_plain(lambda: in_act_tiled_cuda(x, "identity", "act_norm"),
@@ -1162,20 +1291,35 @@ def phase_tiled_times(card: str) -> dict:
         f"{t['plain_ms']:.4f} ms (device {ms_text(t['plain_device_ms'])}), "
         f"F.instance_norm {t['library_ms']:.4f} ms [{card}]")
     out = {"in_act_tiled": {**t, **in_act_bound(IDENTITY_SITE, b16)}}
-    for i, (shape, act, order) in enumerate(TILED_SITES):
-        x = randn(shape, 950 + i, b16, 2.0) + 0.5
-        fns = {"K2": lambda: in_act_tiled_cuda(x, act, order),
-               "tiled_reference": lambda: tiled_reference(x, act, order),
-               "K1": lambda: in_act_cuda(x, act, order),
-               "fused_reference": lambda: fused_reference(x, act, order)}
-        ms = time_calls(fns, 20)
-        b = in_act_bound(shape, b16)["bound_ms"]
-        mb = shape[1] * shape[2] * shape[3] * 4 / 2 ** 20
-        say(f"time IN site {shape} {act}/{order} bf16 (f32 slab {mb:g} MiB "
-            f"per sample), CUDA events / device per call: " + ", ".join(
-                f"{k} {v:.4f} / {ms_text(profiled(fns[k], 20)[0])} ms"
-                for k, v in ms.items())
-            + f"; bound {b:.4f} ms (bytes) [{card}]")
+    for b in TRAIN_BATCHES:
+        for i, (site, act, order) in enumerate(TILED_SITES):
+            shape = (b,) + site[1:]
+            x = randn(shape, 950 + i, b16, 2.0) + 0.5
+            fns = {"K2": lambda: in_act_tiled_cuda(x, act, order),
+                   "K1": lambda: in_act_cuda(x, act, order),
+                   "tiled_reference": lambda: tiled_reference(x, act, order),
+                   "fused_reference": lambda: fused_reference(x, act, order)}
+            if act == "identity":
+                fns["F.instance_norm"] = lambda: F.instance_norm(x)
+            iters = 50 if x.numel() < 2 ** 24 else 10
+            ms = time_calls(fns, iters)
+            host = {k: host_us(fns[k], iters) for k in ("K2", "K1")}
+            dev = {k: kernel_device_ms(fns[k], iters, HAND_KERNELS[k])
+                   for k in ("K2", "K1")}
+            dev.update({k: profiled(fns[k], iters)[0] for k in fns
+                        if k not in dev})
+            b_ms = in_act_bound(shape, b16)["bound_ms"]
+            mb = shape[1] * shape[2] * shape[3] * 4 / 2 ** 20
+            path = "K1 and K2" if slab_fits(shape) else "K2"
+            say(f"time IN site {shape} {act}/{order} bf16 ({path}'s path; "
+                f"f32 slab {mb:g} MiB per sample; plan "
+                f"{plane_plan(shape[2] * shape[3], b16)['regime']}), CUDA "
+                "events / device per call: " + ", ".join(
+                    f"{k} {v:.4f} / {ms_text(dev[k])} ms"
+                    for k, v in ms.items())
+                + f"; host per call K2 {host['K2']:.1f} us, K1 "
+                f"{host['K1']:.1f} us; bound {b_ms:.5f} ms (bytes) [{card}]")
+            del x
     return out
 
 
@@ -1269,17 +1413,6 @@ def phase_experiment_kernels() -> dict:
     return errs
 
 
-def kernel_device_ms(fn, iters: int, name: str):
-    """The profiler's device time per call of the CUDA kernels whose name
-    holds `name` (a prototype's kernel alone, without its wrapper's pads
-    and layout copies); None where the profiler saw none."""
-    events = profiled(fn, iters)[1]
-    us = sum(e.self_device_time_total for e in events
-             if name in e.key
-             and e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / iters if us > 0 else None
-
-
 def phase_experiments(card: str) -> dict:
     """The prototypes' path: each entry point's ``main`` at its default
     batch (24) on the card, with every launch count set to 0 just before it
@@ -1336,7 +1469,7 @@ def phase_experiments(card: str) -> dict:
                                 lambda: F.conv2d(xp, wl), 5)
             show(f"{name} {label} x{tuple(x.shape)} R{R}", t,
                  kernel_device_ms(lambda: kernel(x, w, R), 5,
-                                  EXP_KERNEL_NAMES[name]))
+                                  (EXP_KERNEL_NAMES[name],)))
             total = add_times(total, t)
             work.append(conv_work((EXP_BATCH, cin, s, s), cout, k, (s, s),
                                   2, 2))
@@ -1377,7 +1510,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     tiled_launches = phase_tiled_train(card)
     torch.cuda.empty_cache()
-    times.update(phase_tiled_times(card))
+    times.update(phase_in_times(card))
     phase_families(card)
     torch.cuda.empty_cache()
     errs.update(phase_experiment_kernels())

@@ -22,10 +22,13 @@ from vae_cyclegan_tpu_torch.experiments import (
 from vae_cyclegan_tpu_torch.experiments.common import reflect_conv_reference
 from vae_cyclegan_tpu_torch.models.tasks import create_task
 from vae_cyclegan_tpu_torch.ops.instance_norm import (
+    ACTS,
+    ORDERS,
     fused_reference,
     in_act_cuda,
     in_act_tiled_cuda,
     instance_norm_act,
+    plane_plan,
     tiled_reference,
 )
 from vae_cyclegan_tpu_torch.ops.reflect_conv import reflect_conv
@@ -70,8 +73,10 @@ def _assert_close(got, want):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-# (1, 2, 8, 1535): 12280 elements, the largest plane held in shared memory;
-# (1, 3, 96, 128): 12288, just past it, so it loops over device memory
+# the serving path's planes (16x16), a plane that is not a multiple of the
+# 16-byte vector (7x9), and planes of 12280 (a multiple of the vector, not
+# of a CTA's 256 vectors) to 16384 elements: a CTA per plane in bf16, a
+# cluster of CTAs in f32
 @pytest.mark.parametrize("shape", [(4, 1024, 16, 16), (2, 8, 16, 16),
                                    (2, 3, 7, 9), (1, 4, 128, 128),
                                    (1, 2, 8, 1535), (1, 3, 96, 128)])
@@ -79,14 +84,94 @@ def _assert_close(got, want):
                                  "identity"])
 @pytest.mark.parametrize("order", ["norm_act", "act_norm"])
 def test_in_act_kernel_matches_plain(cuda, shape, dtype, act, order):
+    """K1 against fused_reference; its sums run in a fixed order with no
+    atomics, so a second launch gives the same bits."""
     x = _randn(shape, 0, cuda, dtype, 2.0) + 0.5
-    _assert_close(in_act_cuda(x, act, order), fused_reference(x, act, order))
+    got = in_act_cuda(x, act, order)
+    _assert_close(got, fused_reference(x, act, order))
+    assert torch.equal(in_act_cuda(x, act, order), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_in_act_kernel_takes_unaligned_views(cuda, dtype):
+    """A view one element into its storage is not 16-byte aligned: K1 takes
+    its one-element loads, and agrees."""
+    base = _randn((2 * 64 * 32 * 32 + 1,), 24, cuda, dtype, 2.0)
+    x = base[1:].view(2, 64, 32, 32)
+    assert x.data_ptr() % 16 != 0
+    _assert_close(in_act_cuda(x, "relu", "act_norm"),
+                  fused_reference(x, "relu", "act_norm"))
+
+
+# The IN kernels' regimes (csrc/in_plane.cuh), by bytes per plane: a warp per
+# plane up to 2 KB, a CTA per plane up to 32 KB, a thread block cluster per
+# plane up to 256 KB, a cluster looping over the plane beyond
+PLANE_LIMITS = ((2 * 1024, "warp"), (32 * 1024, "block"),
+                (256 * 1024, "cluster"))
+
+
+def _regime(hw, dtype):
+    nbytes = hw * torch.empty((), dtype=dtype).element_size()
+    return next((name for limit, name in PLANE_LIMITS if nbytes <= limit),
+                "stream")
+
+
+def _plane_cases(dtype):
+    """(dtype, shape) at each threshold of the regimes and one 16-byte vector
+    either side (h = the vector's elements, w = 128 k - 1, 128 k, 128 k + 1:
+    2, 32 and 256 KB at k = 1, 16, 128); planes whose hw is not a multiple
+    of the vector (1023, 16383, 65535, 131769 elements: a regime each in
+    bf16); 11 and 15 planes of 16x16, which do not fill the last block of
+    eight warps."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    shapes = [(1, 3, vec, 128 * k + d) for k in (1, 16, 128)
+              for d in (-1, 0, 1)]
+    shapes += [(1, 3, 31, 33), (1, 2, 127, 129), (1, 2, 255, 257),
+               (1, 2, 363, 363), (1, 11, 16, 16), (3, 5, 16, 16)]
+    return [(dtype, shape) for shape in shapes]
+
+
+PLANE_CASES = _plane_cases(torch.bfloat16) + _plane_cases(torch.float32)
+IN_KERNELS = {"in_act": (in_act_cuda, fused_reference),
+              "in_act_tiled": (in_act_tiled_cuda, tiled_reference)}
+
+
+@pytest.mark.parametrize("act", list(ACTS))
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("dtype,shape", PLANE_CASES)
+@pytest.mark.parametrize("kernel", list(IN_KERNELS))
+def test_in_kernels_at_plane_regime_edges(cuda, kernel, dtype, shape, act,
+                                          order):
+    """K1 and K2 at the edges of their regimes: the plan the library takes
+    is the regime the thresholds name; the kernel against its plain version,
+    and bit for bit on a second launch."""
+    launch, plain = IN_KERNELS[kernel]
+    hw = shape[2] * shape[3]
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    assert plane_plan(hw, dtype, hw % vec == 0)["regime"] == _regime(hw, dtype)
+    x = _randn(shape, 40, cuda, dtype, 2.0) + 0.5
+    got = launch(x, act, order)
+    _assert_close(got, plain(x, act, order))
+    assert torch.equal(launch(x, act, order), got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("side", [16, 32, 64, 128, 256])
+def test_in_kernels_hold_the_path_planes_on_chip(cuda, side, dtype):
+    """The path's planes: 16x16 and 32x32 bf16 a warp each, 64x64 and
+    128x128 a CTA, 256x256 a cluster of 8 CTAs (f32, twice the bytes, a
+    regime later): none loops over device memory."""
+    plan = plane_plan(side * side, dtype)
+    assert plan["vec"] == 16 // torch.empty((), dtype=dtype).element_size()
+    assert plan["regime"] == _regime(side * side, dtype) != "stream"
+    if side == 256:
+        assert plan["regime"] == "cluster" and plan["cluster"] == 8
 
 
 # the tiled configuration's sites at batch 2 (generator: 256x256x64 ...
 # 16x16x1024; discriminator: 64x64x128 ... 16x16x512, among them) and edge
-# shapes: planes that are not a multiple of the kernel's 4096-element chunk
-# or of its 16-byte vector, one plane smaller than a warp's vector sweep
+# shapes: planes that are not a multiple of the 16-byte vector (75x67 and
+# 64x65: a CTA each, 9x9: a warp), one plane smaller than a warp's vectors
 TILED_SHAPES = [(2, 64, 256, 256), (2, 128, 128, 128), (2, 256, 64, 64),
                 (2, 512, 32, 32), (2, 1024, 16, 16), (2, 3, 75, 67),
                 (3, 5, 64, 65), (1, 2, 9, 9)]
@@ -98,8 +183,8 @@ TILED_SHAPES = [(2, 64, 256, 256), (2, 128, 128, 128), (2, 256, 64, 64),
                                  "identity"])
 @pytest.mark.parametrize("order", ["norm_act", "act_norm"])
 def test_in_act_tiled_kernel_matches_plain(cuda, shape, dtype, act, order):
-    """K2 against tiled_reference; the two passes sum in a fixed order with
-    no atomics, so a second launch gives the same bits."""
+    """K2 against tiled_reference; its sums run in a fixed order with no
+    atomics, so a second launch gives the same bits."""
     x = _randn(shape, 20, cuda, dtype, 2.0) + 0.5
     got = in_act_tiled_cuda(x, act, order)
     _assert_close(got, tiled_reference(x, act, order))

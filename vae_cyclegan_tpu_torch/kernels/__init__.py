@@ -44,15 +44,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> (return type, argument types)
 _SIGNATURES = {
-    # (x, y, planes, hw, dtype, act, act_norm, eps, stream)
+    # (x, y, planes, hw, dtype, act, act_norm, eps, stream), K1 and K2
     "vct_in_act": (_I, [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I,
                         _I, ctypes.c_float, _P]),
-    # (planes, hw) -> floats of scratch, or -1
-    "vct_in_act_tiled_scratch_floats": (ctypes.c_longlong,
-                                        [ctypes.c_longlong] * 2),
-    # (x, y, scratch, planes, hw, dtype, act, act_norm, eps, stream)
-    "vct_in_act_tiled": (_I, [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+    "vct_in_act_tiled": (_I, [_P, _P, ctypes.c_longlong, ctypes.c_longlong,
                               _I, _I, _I, ctypes.c_float, _P]),
+    # (hw, dtype, vector_ok, int[4] out) -> 0: the IN kernels' plane plan
+    "vct_in_plane_plan": (_I, [ctypes.c_longlong, _I, _I, _P]),
     # (x, w, y, n, cin, cout, h, w, k, mode, dtype, stream)
     "vct_starved_conv": (_I, [_P, _P, _P] + [_I] * 8 + [_P]),
     # (n, cin, cout, h, w, k) -> floats of scratch, or -1

@@ -16,7 +16,7 @@ instance_norm.py::instance_norm_act``), by ``mode``, the counterpart of its
     them to XLA. In a generator forward the kernel runs at the five
     16x16x1024 sites, in a discriminator forward at the 32x32x256 and
     16x16x512 sites.
-  * ``"tiled"`` (JAX's "tiled"): every site takes the two-pass kernel
+  * ``"tiled"`` (JAX's "tiled"): every site takes the tiled kernel
     (``csrc/in_act_tiled.cu``, the port of ``_pallas_in_act_tiled``), whose
     statistics are single-pass (var = max(E[h^2] - mean^2, 0)) and which
     rounds once, after the activation and the norm. Where ``tile_rows``
@@ -25,6 +25,11 @@ instance_norm.py::instance_norm_act``), by ``mode``, the counterpart of its
   * ``"plain"``: the plain version whatever the size; the Decoder's U4 site
     under "tiled" when JAX hands that site over channel-major (it then
     normalizes it on XLA).
+
+Both kernels share ``csrc/in_plane.cuh``: each plane is read from device
+memory once, held on chip (a warp, a CTA or a thread block cluster per
+plane, by its size) and written once, in one launch; they differ only in the
+variance formula.
 
 A CUDA tensor that the rule selects launches the kernel or raises; CPU and
 ``meta`` tensors take the plain version.
@@ -43,6 +48,7 @@ uses the single-pass E[x^2] - mean^2 (``_stats``).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Dict
 
 import torch
@@ -230,20 +236,32 @@ def _check_kernel_input(name: str, x: torch.Tensor, act: str,
                            "instance_norm_act for the op with its gradient")
 
 
+def _launch_in_act(entry: str, x: torch.Tensor, act: str, order: str,
+                   eps: float) -> torch.Tensor:
+    """One launch of an IN+act kernel (C entry point `entry`) on x's device
+    and that device's current stream; returns y. Enters the device's
+    context only when x is not on the current device."""
+    _check_kernel_input(entry[4:], x, act, order)
+    n, c, h, w = x.shape
+    fn = getattr(kernels.load(), entry)
+    y = torch.empty_like(x)
+    args = (x.data_ptr(), y.data_ptr(), n * c, h * w, DTYPE_CODES[x.dtype],
+            _ACT_CODES[act], int(order == "act_norm"), float(eps))
+    if x.device.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, entry[4:])
+    return y
+
+
 def in_act_cuda(x: torch.Tensor, act: str, order: str,
                 eps: float = EPS) -> torch.Tensor:
-    """Launch the IN+act kernel on a contiguous NCHW CUDA tensor (float32 or
+    """Launch K1, the IN+act kernel with the centered variance
+    (``fused_reference``), on a contiguous NCHW CUDA tensor (float32 or
     bfloat16). Not differentiable itself: raises under autograd."""
-    _check_kernel_input("in_act", x, act, order)
-    n, c, h, w = x.shape
-    lib = kernels.load()
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vct_in_act(x.data_ptr(), y.data_ptr(), n * c, h * w,
-                            DTYPE_CODES[x.dtype], _ACT_CODES[act],
-                            int(order == "act_norm"), float(eps), stream)
-    kernels.check(rc, "in_act")
+    y = _launch_in_act("vct_in_act", x, act, order, eps)
     in_act_cuda.launches += 1
     return y
 
@@ -253,31 +271,33 @@ in_act_cuda.launches = 0
 
 def in_act_tiled_cuda(x: torch.Tensor, act: str, order: str,
                       eps: float = EPS) -> torch.Tensor:
-    """Launch the two-pass IN+act kernel (statistics, then the norm) on a
-    contiguous NCHW CUDA tensor (float32 or bfloat16), computing
-    ``tiled_reference``. Not differentiable itself: raises under
-    autograd."""
-    _check_kernel_input("in_act_tiled", x, act, order)
-    n, c, h, w = x.shape
-    lib = kernels.load()
-    floats = lib.vct_in_act_tiled_scratch_floats(n * c, h * w)
-    if floats < 0:
-        raise ValueError(f"in_act_tiled kernel cannot take shape "
-                         f"{tuple(x.shape)}")
-    y = torch.empty_like(x)
-    scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.vct_in_act_tiled(x.data_ptr(), y.data_ptr(),
-                                  scratch.data_ptr(), n * c, h * w,
-                                  DTYPE_CODES[x.dtype], _ACT_CODES[act],
-                                  int(order == "act_norm"), float(eps), stream)
-    kernels.check(rc, "in_act_tiled")
+    """Launch K2, the IN+act kernel with the single-pass variance
+    (``tiled_reference``), on a contiguous NCHW CUDA tensor (float32 or
+    bfloat16). Not differentiable itself: raises under autograd."""
+    y = _launch_in_act("vct_in_act_tiled", x, act, order, eps)
     in_act_tiled_cuda.launches += 1
     return y
 
 
 in_act_tiled_cuda.launches = 0
+
+PLANE_REGIMES = ("warp", "block", "cluster", "stream")
+
+
+def plane_plan(hw: int, dtype: torch.dtype, vector_ok: bool = True) -> dict:
+    """How both IN kernels take planes of `hw` elements of `dtype`
+    (``csrc/in_plane.cuh``): the regime (a warp, a CTA or a cluster of CTAs
+    holding the plane on chip, or a cluster looping over it), the elements
+    per load (16-byte vectors when `vector_ok`: x and y 16-byte aligned and
+    hw a multiple of the vector), the elements a thread holds and the CTAs
+    per plane. Asks the built library, so it needs the card's toolchain."""
+    out = (ctypes.c_int * 4)()
+    rc = kernels.load().vct_in_plane_plan(hw, DTYPE_CODES[dtype],
+                                          int(vector_ok), out)
+    if rc != 0:
+        raise ValueError(f"no plane plan for hw={hw}, {dtype}")
+    return {"regime": PLANE_REGIMES[out[0]], "vec": out[1], "elems": out[2],
+            "cluster": out[3]}
 
 
 class _InActFused(torch.autograd.Function):
@@ -298,7 +318,7 @@ class _InActFused(torch.autograd.Function):
 
 
 class _InActTiled(torch.autograd.Function):
-    """The tiled configuration's sites: the two-pass kernel forward (plain
+    """The tiled configuration's sites: the tiled kernel forward (plain
     off the card; ``fused_reference`` where JAX's tile does not divide H*W),
     saves x."""
 
