@@ -44,11 +44,13 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               step at image 64, base 16
   8. experiments: the four conv prototypes of experiments/ (K5-K8): each
               kernel against its plain version at the prototypes' shapes
-              (batch 24, bf16) and at edge shapes (f32 and bf16), bit for bit
-              on a second launch, R not dividing h refused; then each
-              prototype's entry point (``main``) at its default batch, 24,
-              whose calls must equal its kernel's launches; kernel, plain
-              version and library call timed at the prototypes' shapes
+              (batch 24, bf16) and at edge shapes (f32 and bf16; K7 also
+              at planes of k / 2 + 1), bit for bit on a second launch, R
+              not dividing h refused; then each prototype's entry point
+              (``main``) at its default batch, 24, whose calls must equal
+              its kernel's launches; kernel, plain version and library call
+              timed at the prototypes' shapes, each conv shape beside its
+              bound and the kernel's factor over it
   9. times:   kernel vs plain vs the library call (CUDA events), each
               kernel's bound (bytes over HBM bandwidth or operations over
               the peak rate, whichever is larger), the two IN kernels and
@@ -266,15 +268,26 @@ EXP_CONVS = (
      reflect_conv_reference, "experiments/pallas_conv3.py:87"),
 )
 # each conv kernel's CUDA function, as the profiler names it
-EXP_KERNEL_NAMES = {"conv_proto": "conv_proto_kernel",
+EXP_KERNEL_NAMES = {"conv_proto": "conv_proto_nhwc_kernel",
                     "lowcin_conv_cm": "lowcin_kernel",
-                    "lowcin_conv_nhwc": "lowcin_kernel"}
+                    "lowcin_conv_nhwc": "lowcin_nhwc_kernel"}
 EXP_BATCH = 24   # the prototypes' batch
-# edge shapes (h, w, cin, cout, k, R): k = 7, 5, 3; cin = 3, 5, 8; widths
-# off the multiple of 8; two R per shape; cout = 3 takes the narrow tiles
+# edge shapes (h, w, cin, cout, k, R), tests/test_torch_kernels.py's
+# PROTO_CASES: k = 7, 5, 3; cin = 3, 5 (the NHWC core's register-staged
+# loader), 8, 32, 64 (its cp.async one); widths off the multiple of 8 and
+# ragged column tiles; two R per shape; cout 3, 6, 8 folded, 6 and 8 at k 7
+# and 16 narrow, 80 and 128 the 128-wide tile; 256 x 256 more tiles than a
+# block's slab ring holds
 EXP_EDGES = [(16, 20, 3, 8, 7, 8), (16, 20, 3, 8, 7, 16), (24, 30, 5, 6, 5, 8),
              (24, 30, 5, 6, 5, 12), (32, 36, 8, 16, 3, 16),
-             (32, 36, 8, 16, 3, 4), (16, 24, 64, 3, 7, 8)]
+             (32, 36, 8, 16, 3, 4), (16, 24, 64, 3, 7, 8),
+             (32, 32, 32, 64, 3, 16), (8, 130, 64, 128, 3, 8),
+             (6, 300, 64, 80, 3, 6), (10, 36, 32, 3, 3, 10),
+             (8, 20, 8, 6, 7, 8), (12, 20, 5, 8, 3, 4), (256, 256, 8, 64, 3, 16)]
+# K7 alone (its loader reflects): planes of k / 2 + 1, REFLECT_EDGES there
+EXP_REFLECT_EDGES = [(2, 2, 5, 8, 3, 2), (3, 3, 8, 64, 5, 3),
+                     (4, 4, 3, 80, 7, 4), (4, 4, 32, 3, 7, 2),
+                     (2, 2, 64, 16, 3, 1)]
 # K8's edges (mk, nk, kk, steps): both tile orientations, ragged M, N, K
 PROBE_EDGES = [(24, 40, 100, 3), (40, 24, 77, 2)]
 STEP_METRIC_RTOL = 2e-3
@@ -1363,8 +1376,10 @@ def phase_experiment_kernels() -> dict:
     for name, module, kernel, plain, _ in EXP_CONVS:
         cases = [(EXP_BATCH, s, s, cin, cout, k, R, b16)
                  for _, s, cin, cout, k, R in module.SHAPES]
+        edges = EXP_EDGES + (EXP_REFLECT_EDGES
+                             if name == "lowcin_conv_nhwc" else [])
         cases += [(2, h, w, cin, cout, k, R, dtype)
-                  for h, w, cin, cout, k, R in EXP_EDGES
+                  for h, w, cin, cout, k, R in edges
                   for dtype in (b16, f32)]
         for i, (n, h, w, cin, cout, k, R, dtype) in enumerate(cases):
             x = dev_randn((n, h, w, cin), 1000 + i, dtype)
@@ -1449,12 +1464,18 @@ def phase_experiments(card: str) -> dict:
     b16 = torch.bfloat16
     times = {}
 
-    def show(label, t, alone):
+    def show(label, t, alone, b=None):
+        factor = ""
+        if b is not None:
+            factor = (f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+                      f"events {t['ms'] / b['bound_ms']:.1f}x it, alone "
+                      + ("not measured" if alone is None
+                         else f"{alone / b['bound_ms']:.1f}x it"))
         say(f"time {label} bf16: kernel {t['ms']:.4f} ms (device "
             f"{ms_text(t['device_ms'])}, of it the kernel alone "
             f"{ms_text(alone)}), plain {t['plain_ms']:.4f} ms (device "
             f"{ms_text(t['plain_device_ms'])}), library "
-            f"{ms_text(t['library_ms'])} ms [{card}]")
+            f"{ms_text(t['library_ms'])} ms{factor} [{card}]")
 
     for name, module, kernel, plain, _ in EXP_CONVS:
         total, work = None, []
@@ -1467,12 +1488,13 @@ def phase_experiments(card: str) -> dict:
             wl = w.permute(3, 2, 0, 1).contiguous(memory_format=memory)
             t = kernel_vs_plain(lambda: kernel(x, w, R), lambda: plain(x, w),
                                 lambda: F.conv2d(xp, wl), 5)
-            show(f"{name} {label} x{tuple(x.shape)} R{R}", t,
-                 kernel_device_ms(lambda: kernel(x, w, R), 5,
-                                  (EXP_KERNEL_NAMES[name],)))
-            total = add_times(total, t)
             work.append(conv_work((EXP_BATCH, cin, s, s), cout, k, (s, s),
                                   2, 2))
+            show(f"{name} {label} x{tuple(x.shape)} R{R}", t,
+                 kernel_device_ms(lambda: kernel(x, w, R), 5,
+                                  (EXP_KERNEL_NAMES[name],)),
+                 sum_bounds(work[-1:], "bf16"))
+            total = add_times(total, t)
             del x, w, xp, wl
         times[name] = {**total, **sum_bounds(work, "bf16")}
     total, work = None, []
@@ -1516,9 +1538,9 @@ def main() -> None:
     errs.update(phase_experiment_kernels())
     exp = phase_experiments(card)
     conv_src = "vae_cyclegan_tpu_torch/csrc/starved_conv.cu"
-    lowcin_src = "vae_cyclegan_tpu_torch/csrc/lowcin_conv.cu"
     sources = {"conv_proto": "vae_cyclegan_tpu_torch/csrc/conv_proto.cu",
-               "lowcin_conv_cm": lowcin_src, "lowcin_conv_nhwc": lowcin_src,
+               "lowcin_conv_cm": "vae_cyclegan_tpu_torch/csrc/lowcin_conv.cu",
+               "lowcin_conv_nhwc": "vae_cyclegan_tpu_torch/csrc/lowcin_nhwc.cu",
                "dot_probe": "vae_cyclegan_tpu_torch/csrc/dot_probe.cu"}
     replaces = {name: tpu for name, *_, tpu in EXP_CONVS}
     replaces["dot_probe"] = "experiments/dw_dot_probe.py:25"

@@ -24,6 +24,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from vae_cyclegan_tpu_torch.experiments import (
+    common,
     conv_proto,
     dw_dot_probe,
     lowcin_conv2,
@@ -162,6 +163,40 @@ def test_prep_layouts_match_jax():
         assert not gp[..., wd + 2 * p:].any() and not got[..., -tail:].any()
         np.testing.assert_array_equal(lowcin_conv2.prep_w(w, cin_p).numpy(),
                                       np.asarray(jscript.prep_w(jw, cin_p)))
+
+
+@pytest.mark.parametrize("k,cin,cout", [(7, 3, 64), (3, 64, 128), (3, 32, 64),
+                                         (7, 64, 3), (5, 5, 6), (3, 8, 8)])
+def test_nhwc_weight_keeps_each_tpu_kernels_contraction_order(k, cin, cout):
+    """The weight of the NHWC conv core (K5, K7), bf16: cin zero-padded to
+    whole 16-byte chunks (8 channels), the taps in K5's im2col order (dy,
+    dx, ci), the rows of ``pallas_conv_proto``'s ``w.reshape(k*k*cin,
+    cout)``, or in K7's (dx, dy, ci), the rows of JAX's
+    ``pallas_conv2.prep_w`` laid side by side; where k * cout <= FOLD_COLS
+    the dx taps fold into the rows, (co, dx) x (dy, ci). Exact."""
+    x, w, jx, jw = _operands((8, 8, cin, cout, k, 0), torch.bfloat16)
+    cin_p = -(-cin // 8) * 8
+    wpad = np.zeros((k, k, cin_p, cout), np.float32)
+    wpad[:, :, :cin] = w.float().numpy()
+    fold = k * cout <= common.FOLD_COLS
+    k5, fold5 = common.nhwc_weight(w, dx_outer=False)
+    k7, fold7 = common.nhwc_weight(w, dx_outer=True)
+    assert fold5 == fold7 == fold and k5.dtype == k7.dtype == torch.bfloat16
+    if fold:
+        want = wpad.transpose(3, 1, 0, 2).reshape(cout * k, k * cin_p)
+        np.testing.assert_array_equal(k5.float().numpy(), want)
+        np.testing.assert_array_equal(k7.float().numpy(), want)
+        return
+    np.testing.assert_array_equal(
+        k5.float().numpy(), wpad.reshape(k * k * cin_p, cout).T)
+    jdx = np.asarray(_jax_script("pallas_conv2").prep_w(jw, cin_p),
+                     np.float32)  # (k_dx, cout, k_dy * cin_p)
+    np.testing.assert_array_equal(
+        k7.float().numpy(), jdx.transpose(1, 0, 2).reshape(cout, -1))
+    if cin == cin_p:
+        np.testing.assert_array_equal(
+            k5.float().numpy(),
+            np.asarray(jw, np.float32).reshape(k * k * cin, cout).T)
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))

@@ -468,11 +468,23 @@ def test_tiled_slice_on_cuda_launches_each_picked_site_and_matches_cpu(cuda):
 
 # the conv prototypes' kernels (K5-K7) at edge shapes, (h, w, cin, cout, k,
 # R): k = 7, 5, 3; cin = 3, 5, 8 and the paths' 32 and 64; widths off the
-# multiple of 8; two R per shape; cout = 3 takes the narrow tiles
+# multiple of 8; two R per shape. For the NHWC core of K5 and K7: cin 3 and
+# 5 take its register-staged loader, 8, 32 and 64 its cp.async one; cout 3
+# (k 3 and 7), 6 (k 5) and 8 (k 3) fold the dx taps into N, 6 and 8 at k 7
+# and 16 take the narrow tiles, 80 and 128 the 128-wide one (80: a ragged
+# channel tile); widths 20, 36, 130 and 300 leave a ragged last column tile;
+# 256 x 256 at cin 8 gives more tiles than a block's two-slab ring holds
 PROTO_CASES = [(16, 20, 3, 8, 7, 8), (16, 20, 3, 8, 7, 16),
                (24, 30, 5, 6, 5, 8), (24, 30, 5, 6, 5, 12),
                (32, 36, 8, 16, 3, 16), (32, 36, 8, 16, 3, 4),
-               (16, 24, 64, 3, 7, 8), (32, 32, 32, 64, 3, 16)]
+               (16, 24, 64, 3, 7, 8), (32, 32, 32, 64, 3, 16),
+               (8, 130, 64, 128, 3, 8), (6, 300, 64, 80, 3, 6),
+               (10, 36, 32, 3, 3, 10), (8, 20, 8, 6, 7, 8),
+               (12, 20, 5, 8, 3, 4), (256, 256, 8, 64, 3, 16)]
+# K7 reads x with the reflect halo in its loader: the tightest reflection,
+# h and w = k / 2 + 1 (k 3, 5, 7), on both loader paths and all tile kinds
+REFLECT_EDGES = [(2, 2, 5, 8, 3, 2), (3, 3, 8, 64, 5, 3), (4, 4, 3, 80, 7, 4),
+                 (4, 4, 32, 3, 7, 2), (2, 2, 64, 16, 3, 1)]
 # kernel wrapper -> the plain version in the kernel's own output layout
 PROTO_KERNELS = {
     "conv_proto": (conv_proto.conv_proto_cuda, reflect_conv_reference),
@@ -498,6 +510,21 @@ def test_conv_prototype_kernel_matches_plain(cuda, name, h, w, cin, cout, k,
     _assert_close(got, plain(x, wgt))
     assert torch.equal(kernel(x, wgt, R), got)
     assert kernel.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,w,cin,cout,k,R", REFLECT_EDGES)
+def test_lowcin_nhwc_kernel_reflects_at_the_tightest_planes(cuda, h, w, cin,
+                                                           cout, k, R, dtype):
+    """K7 at planes one row and column wider than its reflect pad: every
+    slab position reflects, some twice over the plane; bit for bit on a
+    second launch."""
+    kernel = lowcin_conv3.lowcin_conv_nhwc_cuda
+    x = _randn((2, h, w, cin), 38, cuda, dtype)
+    wgt = _randn((k, k, cin, cout), 39, cuda, dtype, 0.05)
+    got = kernel(x, wgt, R)
+    _assert_close(got, reflect_conv_reference(x, wgt))
+    assert torch.equal(kernel(x, wgt, R), got)
 
 
 @pytest.mark.parametrize("name", list(PROTO_KERNELS))

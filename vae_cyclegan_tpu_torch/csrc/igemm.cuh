@@ -1,7 +1,8 @@
-// Building blocks of the conv prototypes' kernels (conv_proto.cu,
-// lowcin_conv.cu) and the dot probe (dot_probe.cu).
+// Building blocks of K6's kernel (lowcin_conv.cu) and the dot probe
+// (dot_probe.cu); starved_conv.cu (K3), starved_dw.cu (K4) and nhwc_conv.cuh
+// (K5, K7) take parts of it (the mma, the tiles, the conversions).
 //
-// The two conv kernels are implicit GEMMs whose operands both sit in shared
+// K6's kernel is an implicit GEMM whose operands both sit in shared
 // memory for the whole K loop: the weights, staged once per block, and the
 // slab of input under the block's output tile, staged once per tile. The K
 // loop then reads mma fragments straight from them, with no barrier and no
@@ -76,9 +77,8 @@ struct Rows {
 
 // A GEMM operand gathered from an input slab in shared memory: element
 // (row, k) at p[row * stride + koff[k / 2] + (k & 1) * next], koff a table of
-// the slab offset of each contraction pair (k, k + 1), k even. `kAdjacent`:
-// next == 1 and the pair is one aligned 4-byte word.
-template <typename T, bool kAdjacent>
+// the slab offset of each contraction pair (k, k + 1), k even.
+template <typename T>
 struct Slab {
   const T* p;
   const int* koff;
@@ -88,7 +88,6 @@ struct Slab {
   }
   __device__ __forceinline__ uint32_t pair(int row, int k) const {
     const T* q = at(row, k);
-    if constexpr (kAdjacent) return *reinterpret_cast<const uint32_t*>(q);
     return bits(q[0]) | (bits(q[next]) << 16);
   }
   __device__ __forceinline__ float value(int row, int k) const {

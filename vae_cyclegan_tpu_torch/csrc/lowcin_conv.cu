@@ -1,16 +1,15 @@
-// Reflect-padded SAME stride-1 conv forward of the channel-major prototypes:
-// per (image, R-row chunk), k dx-shifted GEMMs acc(cout, R*Wp) +=
-// W[dx] (cout, k*cin_p) . patch[:, dx : dx + R*Wp], f32 accumulation. One
-// kernel, two output layouts:
+// K6: reflect-padded SAME stride-1 conv forward of the channel-major
+// prototype: per (image, R-row chunk), k dx-shifted GEMMs acc(cout, R*Wp) +=
+// W[dx] (cout, k*cin_p) . patch[:, dx : dx + R*Wp], f32 accumulation, into
+// the channel-major y (n, cout, h * Wp), all Wp columns of each row, as
+// experiments/pallas_conv2.py::lowcin_conv writes it (its wrapper slices the
+// w real columns and transposes to NHWC). This kernel also had an NHWC mode
+// for K7 (experiments/pallas_conv3.py::lowcin_conv); K7 now runs on the NHWC
+// conv core (lowcin_nhwc.cu), reading NHWC x with no channel-major copy, so
+// the mode went with its last caller.
 //
-//   nhwc 0: channel-major y (n, cout, h * Wp), all Wp columns of each row,
-//           as experiments/pallas_conv2.py::lowcin_conv writes it (its wrapper
-//           slices the w real columns and transposes to NHWC)
-//   nhwc 1: NHWC y (n, h, w, cout), the w real columns only, written by the
-//           kernel itself as experiments/pallas_conv3.py::lowcin_conv does
-//
-// Replaces experiments/pallas_conv2.py::lowcin_conv and experiments/
-// pallas_conv3.py::lowcin_conv (kernel bodies _kernel). The wrapper
+// Replaces experiments/pallas_conv2.py::lowcin_conv (kernel body _kernel).
+// The wrapper
 // (vae_cyclegan_tpu_torch/experiments/lowcin_conv2.py::prep_x, prep_w) lays
 // the input out channel-major as the TPU wrapper does: xf (n, cin_p, xlen),
 // each channel the reflect-padded (h + 2p) x Wp plane flattened, with cin
@@ -30,14 +29,13 @@
 // GEMMs in order) of position l is slab element (ci*k + dy) * S + dx + l - l0.
 // The K loop reads its mma fragments straight from the weights and the slab,
 // with no barrier in it (a B fragment's pair, channels ci and ci + 1, is two
-// 2-byte loads k*S apart). The TPU kernel of pallas_conv3.py also
-// double-buffers the next chunk's slab DMAs; here one tile's slab copy does
-// not overlap the last tile's products (ROADMAP.md).
+// 2-byte loads k*S apart); one tile's slab copy does not overlap the last
+// tile's products.
 //
 // What bounds it: as conv_proto.cu, the same convs (bytes at the head, U4 and
 // tail, the tensor cores at U3). This version reads its input k times, and
-// the wrapper's channel-major copy in (prep_x) and, in channel-major mode,
-// the slice and transpose out are device-memory passes of their own.
+// the wrapper's channel-major copy in (prep_x) and the slice and transpose
+// out are device-memory passes of their own.
 
 #include <climits>
 
@@ -48,7 +46,7 @@ namespace {
 using vct::igemm::align16;
 using vct::igemm::kThreads;
 
-template <typename T, int BM, int BN, int WARPS_M, bool kNHWC>
+template <typename T, int BM, int BN, int WARPS_M>
 __global__ void __launch_bounds__(kThreads)
     lowcin_kernel(const T* __restrict__ xf, const T* __restrict__ wk,
                   T* __restrict__ y, int h, int wd, int wp, long long xlen,
@@ -91,7 +89,7 @@ __global__ void __launch_bounds__(kThreads)
     koff[q] = off;
   }
   const vct::igemm::Rows<T> a{wsm, ws, mreal - 1};
-  const vct::igemm::Slab<T, false> b{slab, koff, 1, k * sp};
+  const vct::igemm::Slab<T> b{slab, koff, 1, k * sp};
 
   const T* src = xf + (long long)img * cin_p * xlen + (long long)row * wp;
   const bool vec = wp * sizeof(T) % 16 == 0 && xlen * sizeof(T) % 16 == 0 &&
@@ -121,20 +119,13 @@ __global__ void __launch_bounds__(kThreads)
     Tl::each(acc, [&](int m, int n, float v) {
       const int co = m0 + m, l = l0 + n;
       if (co >= cout || l >= L) return;
-      if (kNHWC) {
-        const int r = l / wp, c = l - r * wp;
-        if (c < wd)
-          y[(((long long)img * h + row + r) * wd + c) * cout + co] =
-              vct::igemm::from_f<T>(v);
-      } else {
-        y[((long long)img * cout + co) * h * wp + (long long)row * wp + l] =
-            vct::igemm::from_f<T>(v);
-      }
+      y[((long long)img * cout + co) * h * wp + (long long)row * wp + l] =
+          vct::igemm::from_f<T>(v);
     });
   }
 }
 
-template <typename T, int BM, int BN, int WARPS_M, bool kNHWC>
+template <typename T, int BM, int BN, int WARPS_M>
 cudaError_t run(const void* xf, const void* wk, void* y, int n, int h, int wd,
                 int cin_p, int cout, int k, int R, int wp, long long xlen,
                 cudaStream_t stream) {
@@ -148,51 +139,39 @@ cudaError_t run(const void* xf, const void* wk, void* y, int n, int h, int wd,
   const size_t smem = align16(sizeof(T) * min(BM, cout) * (kpad + 8)) +
                       align16(sizeof(int) * (kpad / 2)) +
                       sizeof(T) * (size_t)cin_p * k * ((BN + k - 1 + 7) / 8 * 8);
-  return vct::igemm::launch(lowcin_kernel<T, BM, BN, WARPS_M, kNHWC>,
+  return vct::igemm::launch(lowcin_kernel<T, BM, BN, WARPS_M>,
                             dim3((unsigned)blocks, (unsigned)groups), smem,
                             stream, static_cast<const T*>(xf),
                             static_cast<const T*>(wk), static_cast<T*>(y), h,
                             wd, wp, xlen, cin_p, cout, k, R, tiles_m, tpb);
 }
 
-template <typename T, bool kNHWC>
+template <typename T>
 cudaError_t dispatch(const void* xf, const void* wk, void* y, int n, int h,
                      int wd, int cin_p, int cout, int k, int R, int wp,
                      long long xlen, cudaStream_t stream) {
   // few output channels (the k7 tail's 3): short tiles
   if (cout <= 16)
-    return run<T, 16, 64, 1, kNHWC>(xf, wk, y, n, h, wd, cin_p, cout, k, R,
-                                    wp, xlen, stream);
-  return run<T, 64, 64, 2, kNHWC>(xf, wk, y, n, h, wd, cin_p, cout, k, R, wp,
-                                  xlen, stream);
-}
-
-template <typename T>
-cudaError_t layout(const void* xf, const void* wk, void* y, int n, int h,
-                   int wd, int cin_p, int cout, int k, int R, int wp,
-                   long long xlen, int nhwc, cudaStream_t stream) {
-  if (nhwc)
-    return dispatch<T, true>(xf, wk, y, n, h, wd, cin_p, cout, k, R, wp, xlen,
+    return run<T, 16, 64, 1>(xf, wk, y, n, h, wd, cin_p, cout, k, R, wp, xlen,
                              stream);
-  return dispatch<T, false>(xf, wk, y, n, h, wd, cin_p, cout, k, R, wp, xlen,
-                            stream);
+  return run<T, 64, 64, 2>(xf, wk, y, n, h, wd, cin_p, cout, k, R, wp, xlen,
+                           stream);
 }
 
 }  // namespace
 
 // xf: contiguous (n, cin_p, xlen); wk: contiguous (cout, k * k * cin_p) of the
 // same type, row co = wdx[:, co, :] of the (k, cout, k * cin_p) weight, dx
-// major; y: contiguous (n, cout, h * wp) (nhwc 0) or (n, h, w, cout) (nhwc
-// 1). dtype: vct::kFloat32 or vct::kBFloat16. Requires odd k, even cin_p,
-// k/2 < min(h, w), wp >= w + k - 1, xlen >= (h + k - 1) * wp + k - 1 (the
+// major; y: contiguous (n, cout, h * wp). dtype: vct::kFloat32 or
+// vct::kBFloat16. Requires odd k, even cin_p, k/2 < min(h, w), wp >= w + k - 1, xlen >= (h + k - 1) * wp + k - 1 (the
 // last chunk's taps), R dividing h, n * h / R <= 65535, and 64 (or, for
 // cout <= 16, 16) output channels' weights and a slab of cin_p * k runs of
 // 64 + k - 1 (rounded up to 8) elements that fit shared memory together
 // (227 KB). Returns the cudaError_t of the launch (0 = success).
 extern "C" int vct_lowcin_conv(const void* xf, const void* wk, void* y, int n,
                                int h, int wd, int cin_p, int cout, int k,
-                               int R, int wp, long long xlen, int nhwc,
-                               int dtype, void* stream) {
+                               int R, int wp, long long xlen, int dtype,
+                               void* stream) {
   if (n <= 0 || h <= 0 || wd <= 0 || cin_p <= 0 || cin_p % 2 != 0 ||
       cout <= 0 || k <= 0 || k % 2 == 0 || k / 2 >= h || k / 2 >= wd ||
       R <= 0 || h % R != 0 || wp < wd + k - 1 ||
@@ -201,10 +180,10 @@ extern "C" int vct_lowcin_conv(const void* xf, const void* wk, void* y, int n,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == vct::kFloat32)
-    return (int)layout<float>(xf, wk, y, n, h, wd, cin_p, cout, k, R, wp,
-                              xlen, nhwc, s);
+    return (int)dispatch<float>(xf, wk, y, n, h, wd, cin_p, cout, k, R, wp,
+                                xlen, s);
   if (dtype == vct::kBFloat16)
-    return (int)layout<__nv_bfloat16>(xf, wk, y, n, h, wd, cin_p, cout, k, R,
-                                      wp, xlen, nhwc, s);
+    return (int)dispatch<__nv_bfloat16>(xf, wk, y, n, h, wd, cin_p, cout, k,
+                                        R, wp, xlen, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -77,6 +77,7 @@
 #include <type_traits>
 
 #include "igemm.cuh"
+#include "ptx.cuh"
 
 namespace {
 
@@ -101,26 +102,10 @@ __device__ __forceinline__ int reflect_index(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// the four 8 x 8 bf16 matrices of an m16n8k16 A fragment; lane l gives the
-// address of row l % 16, columns 8 * (l / 16) onward
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
+using vct::ptx::cp_async16;
+using vct::ptx::cp_async_commit;
+using vct::ptx::cp_async_wait_all;
+using vct::ptx::ldmatrix_x4;
 
 // f(r, q) for every cell of a rows x cols grid, the block's threads taking
 // the cells in turn, q fastest (no division per cell)

@@ -5,12 +5,14 @@ Four entry points, each the counterpart of one script, each run as
 ``python -m vae_cyclegan_tpu_torch.experiments.<name> [--batch 24]
 [--device cuda]``:
 
-  * ``conv_proto``: ``experiments/pallas_conv_proto.py`` (NHWC implicit GEMM,
-    ``csrc/conv_proto.cu``)
+  * ``conv_proto``: ``experiments/pallas_conv_proto.py`` (NHWC implicit GEMM
+    over a padded copy, ``csrc/conv_proto.cu`` on the NHWC conv core
+    ``csrc/nhwc_conv.cuh``)
   * ``lowcin_conv2``: ``experiments/pallas_conv2.py`` (channel-major in and
     out, ``csrc/lowcin_conv.cu``)
-  * ``lowcin_conv3``: ``experiments/pallas_conv3.py`` (channel-major in, NHWC
-    out written by the kernel, ``csrc/lowcin_conv.cu``)
+  * ``lowcin_conv3``: ``experiments/pallas_conv3.py`` (NHWC out written by
+    the kernel; ``csrc/lowcin_nhwc.cu`` on the same core, reading NHWC x
+    with the reflect halo in its loader)
   * ``dw_dot_probe``: ``experiments/dw_dot_probe.py`` (the weight-gradient
     dot shapes, ``csrc/dot_probe.cu``)
 

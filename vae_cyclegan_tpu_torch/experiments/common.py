@@ -88,6 +88,49 @@ def launch(entry: str, device: torch.device, *args) -> None:
     kernels.check(rc, entry)
 
 
+# csrc/nhwc_conv.cuh's kFoldCols: K5 and K7 fold the dx taps into N where
+# k * cout is at most this (the k7 tail's 3 output channels)
+FOLD_COLS = 32
+
+
+def nhwc_weight(w: torch.Tensor, dx_outer: bool):
+    """The HWIO weight (k, k, cin, cout) as the NHWC conv core (K5, K7)
+    reads it, and whether the launch folds the dx taps into N: cin
+    zero-padded to whole 16-byte chunks (8 bf16, 4 f32), then the rows
+    (cout, k * k * cin_s), K ordered (dy, dx, ci) or, with `dx_outer`,
+    (dx, dy, ci); where k * cout <= FOLD_COLS the rows (cout * k, k *
+    cin_s), row co * k + dx, K ordered (dy, ci)."""
+    k, _, cin, cout = w.shape
+    per_chunk = 16 // w.element_size()
+    wp = F.pad(w, (0, 0, 0, rup(cin, per_chunk) - cin))
+    fold = k * cout <= FOLD_COLS
+    if fold or dx_outer:
+        wk = wp.permute(3, 1, 0, 2)  # (cout, dx, dy, ci)
+    else:
+        wk = wp.permute(3, 0, 1, 2)  # (cout, dy, dx, ci)
+    return wk.reshape(cout * k if fold else cout, -1).contiguous(), fold
+
+
+def launch_nhwc(entry: str, src: torch.Tensor, x: torch.Tensor,
+                w: torch.Tensor, dx_outer: bool) -> torch.Tensor:
+    """Launch a kernel of the NHWC conv core (`entry`: vct_conv_proto, K5,
+    or vct_lowcin_nhwc, K7) on `src` (what its loader reads: K5 the padded
+    copy, K7 x itself) for the conv of NHWC x with HWIO w; NHWC y out in x's
+    dtype. A block holds the weights of its channel tile (csrc/nhwc_conv.cuh's
+    ``dispatch``: 64, 128 where cout > 64, 16 where cout <= 16, the folded
+    32 rows; 32 or 16 in f32) and two slabs of R + k - 1 rows of BM + k - 1
+    positions in shared memory, 227 KB at most (the prototypes' largest, the
+    folded tail, take 224.5 KB in bf16); a shape past that fails to launch
+    (RuntimeError)."""
+    n, h, wd, cin = x.shape
+    k, _, _, cout = w.shape
+    wk, fold = nhwc_weight(w, dx_outer)
+    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
+    launch(entry, x.device, src.data_ptr(), wk.data_ptr(), y.data_ptr(), n,
+           h, wd, cin, cout, k, int(fold), DTYPE_CODES[x.dtype])
+    return y
+
+
 def reflect_pad_into(dst: torch.Tensor, src: torch.Tensor, p: int, hdim: int,
                      wdim: int) -> None:
     """Write src reflect-padded by p (no edge repeat, as ``F.pad(mode=

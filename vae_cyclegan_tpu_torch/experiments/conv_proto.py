@@ -4,9 +4,10 @@ one implicit GEMM per (image, R-row chunk) with K = k*k*cin.
 Counterpart of ``experiments/pallas_conv_proto.py`` (``pallas_reflect_conv_fwd``
 ``:51``, its ``pallas_call`` ``:67``; ``main`` ``:106``). The wrapper
 reflect-pads the NHWC input and adds one zero row, as the JAX wrapper does in
-XLA (``:56-62``), and ``csrc/conv_proto.cu`` does the GEMM, writing only the
-w real columns of each row (the TPU kernel writes the 2p wrap-around columns
-too and XLA slices them off).
+XLA (``:56-62``), and ``csrc/conv_proto.cu`` (the NHWC conv core of
+``csrc/nhwc_conv.cuh`` with a loader of the padded rows) does the GEMM,
+writing only the w real columns of each row (the TPU kernel writes the 2p
+wrap-around columns too and XLA slices them off).
 
     python -m vae_cyclegan_tpu_torch.experiments.conv_proto [--batch 24] [--device cuda]
 
@@ -21,21 +22,19 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
-import torch.nn.functional as F
 
 from vae_cyclegan_tpu_torch.experiments.common import (
     check_conv,
     check_operands,
     conv_gflop,
     conv_operands,
-    launch,
+    launch_nhwc,
     parse_args,
     reflect_conv_reference,
     reflect_pad_into,
     resolve_device,
 )
 from vae_cyclegan_tpu_torch.experiments.timing import median_ms, ms_text
-from vae_cyclegan_tpu_torch.ops.instance_norm import DTYPE_CODES
 from vae_cyclegan_tpu_torch.ops.reflect_conv import reflect_conv
 
 # (name, size, cin, cout, k, R): pallas_conv_proto.py:109-114
@@ -62,27 +61,14 @@ def pad_input(x: torch.Tensor, k: int) -> torch.Tensor:
 
 def conv_proto_cuda(x: torch.Tensor, w: torch.Tensor, R: int) -> torch.Tensor:
     """Launch K5: contiguous NHWC x and HWIO w (k, k, cin, cout) on one CUDA
-    device, both float32 or both bfloat16, odd k, R dividing h. NHWC out in
-    x's dtype. Not differentiable: raises under autograd. A block holds the
-    weights of min(cout, 64) output channels (k*k*cin values each) and a
-    k x (64 + k - 1) x cin slab in shared memory, 227 KB at most (the
-    prototype's largest, U3 and the tail, take 105 and 96 KB in bf16); a
-    shape past that fails to launch (RuntimeError)."""
+    device, both float32 or both bfloat16, odd k, R dividing h. pad_input,
+    then the kernel (csrc/conv_proto.cu, on the NHWC conv core), which reads
+    the padded copy; NHWC out in x's dtype. Not differentiable: raises under
+    autograd. Shared memory as ``launch_nhwc`` says."""
     check_operands("conv_proto", x, w)
     check_conv("conv_proto", x, w, R)
-    n, h, wd, cin = x.shape
-    k, _, _, cout = w.shape
-    if n * (h // R) > 65535:
-        raise ValueError(f"conv_proto: {n} images x {h // R} chunks exceed "
-                         "the grid's 65535")
-    xp = pad_input(x, k)
-    # the weight as (cout, k * k * cin_g) rows, cin zero-padded to even
-    cin_g = cin + cin % 2
-    wt = F.pad(w, (0, 0, 0, cin_g - cin)).reshape(k * k * cin_g, cout)
-    wt = wt.t().contiguous()
-    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=x.device)
-    launch("vct_conv_proto", x.device, xp.data_ptr(), wt.data_ptr(),
-           y.data_ptr(), n, h, wd, cin, cout, k, R, DTYPE_CODES[x.dtype])
+    y = launch_nhwc("vct_conv_proto", pad_input(x, w.shape[0]), x, w,
+                    dx_outer=False)
     conv_proto_cuda.launches += 1
     return y
 

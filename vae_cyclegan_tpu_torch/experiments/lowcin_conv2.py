@@ -87,14 +87,18 @@ def prep_w(w: torch.Tensor, cin_p: int) -> torch.Tensor:
     return wp.permute(1, 3, 0, 2).reshape(k, cout, k * cin_p).contiguous()
 
 
-def launch_lowcin(name: str, x: torch.Tensor, w: torch.Tensor, R: int,
-                  nhwc: bool) -> torch.Tensor:
-    """The launch of csrc/lowcin_conv.cu shared by K6 (channel-major out)
-    and K7 (NHWC out). A block holds the weights of min(cout, 64) output
-    channels (k*k*cin_p values each) and a cin_p x k x (64 + k - 1) slab in
-    shared memory, 227 KB at most (the prototype's largest, U3 and the tail,
-    take 104 and 90 KB in bf16); a shape past that fails to launch
-    (RuntimeError)."""
+def lowcin_conv_cm_cuda(x: torch.Tensor, w: torch.Tensor,
+                        R: int) -> torch.Tensor:
+    """Launch K6 on contiguous NHWC x and HWIO w (k, k, cin, cout) on one CUDA
+    device, both float32 or both bfloat16, odd k, R dividing h: prep_x and
+    prep_w, then the kernel (csrc/lowcin_conv.cu). Returns its channel-major
+    output (n, cout, h * Wp) in x's dtype, every Wp column of each row (the
+    w real ones first). Not differentiable: raises under autograd. A block
+    holds the weights of min(cout, 64) output channels (k*k*cin_p values
+    each) and a cin_p x k x (64 + k - 1) slab in shared memory, 227 KB at
+    most (the prototype's largest, U3 and the tail, take 104 and 90 KB in
+    bf16); a shape past that fails to launch (RuntimeError)."""
+    name = "lowcin_conv_cm"
     check_operands(name, x, w)
     check_conv(name, x, w, R)
     n, h, wd, cin = x.shape
@@ -106,22 +110,10 @@ def launch_lowcin(name: str, x: torch.Tensor, w: torch.Tensor, R: int,
     xf = prep_x(x, k)
     # wdx's rows per output channel: (cout, k * k * cin_p), dx major
     wk = prep_w(w, cin_p).transpose(0, 1).reshape(cout, -1).contiguous()
-    shape = (n, h, wd, cout) if nhwc else (n, cout, h * wp)
-    y = torch.empty(shape, dtype=x.dtype, device=x.device)
+    y = torch.empty((n, cout, h * wp), dtype=x.dtype, device=x.device)
     launch("vct_lowcin_conv", x.device, xf.data_ptr(), wk.data_ptr(),
            y.data_ptr(), n, h, wd, cin_p, cout, k, R, wp, xf.shape[-1],
-           int(nhwc), DTYPE_CODES[x.dtype])
-    return y
-
-
-def lowcin_conv_cm_cuda(x: torch.Tensor, w: torch.Tensor,
-                        R: int) -> torch.Tensor:
-    """Launch K6 on contiguous NHWC x and HWIO w (k, k, cin, cout) on one CUDA
-    device, both float32 or both bfloat16, odd k, R dividing h: prep_x and
-    prep_w, then the kernel. Returns its channel-major output (n, cout,
-    h * Wp) in x's dtype, every Wp column of each row (the w real ones
-    first). Not differentiable: raises under autograd."""
-    y = launch_lowcin("lowcin_conv_cm", x, w, R, nhwc=False)
+           DTYPE_CODES[x.dtype])
     lowcin_conv_cm_cuda.launches += 1
     return y
 

@@ -1,16 +1,16 @@
-"""K7: the channel-major low-cin conv prototype with the NHWC output written
-by the kernel itself.
+"""K7: the low-cin conv prototype with the NHWC output written by the kernel
+itself.
 
 Counterpart of ``experiments/pallas_conv3.py`` (``lowcin_conv`` ``:87``, its
-``pallas_call`` ``:100``; ``main`` ``:144``). K6's math (``lowcin_conv2``:
-the same channel-major input, ``prep_x`` and ``prep_w``, and the k
-dx-shifted GEMMs) in ``csrc/lowcin_conv.cu``'s NHWC mode: each chunk's
-(cout, R*Wp) result is stored as NHWC (n, h, w, cout), the w real columns
-only, so there is no slice or transpose after it. The TPU kernel also runs
-one flat grid over (n, chunk) and double-buffers the next chunk's slab DMAs
-(``:33-57``); on the card the blocks of all chunks run at once, and the
-kernel overlaps only each chunk's next K step's loads with its current one
-(the two-stage cp.async slab pipeline is not built: ``ROADMAP.md``).
+``pallas_call`` ``:100``; ``main`` ``:144``): K6's math (the k dx-shifted
+GEMMs, K ordered dx outermost, then (dy, ci)) with the NHWC output stored by
+the kernel, the w real columns only, on one flat grid with the next chunk's
+slab double-buffered (``:33-57``). Here ``csrc/lowcin_nhwc.cu``, the NHWC
+conv core of ``csrc/nhwc_conv.cuh``: persistent blocks walk the flat
+(image, row, column tile) space with a two-stage cp.async slab ring, and the
+loader reads NHWC x itself, reflecting each chunk's source position. The
+channel-major copy of x (``lowcin_conv2.prep_x``) served the TPU's lane
+tiling and is not made.
 
     python -m vae_cyclegan_tpu_torch.experiments.lowcin_conv3 [--batch 24] [--device cuda]
 
@@ -25,14 +25,11 @@ import torch
 
 from vae_cyclegan_tpu_torch.experiments.common import (
     check_conv,
+    check_operands,
+    launch_nhwc,
     reflect_conv_reference,
 )
-from vae_cyclegan_tpu_torch.experiments.lowcin_conv2 import (  # noqa: F401
-    launch_lowcin,
-    prep_w,
-    prep_x,
-    run_shapes,
-)
+from vae_cyclegan_tpu_torch.experiments.lowcin_conv2 import run_shapes
 
 # (name, size, cin, cout, k, R): pallas_conv3.py:148-152
 SHAPES = [
@@ -45,10 +42,13 @@ SHAPES = [
 def lowcin_conv_nhwc_cuda(x: torch.Tensor, w: torch.Tensor,
                           R: int) -> torch.Tensor:
     """Launch K7 on contiguous NHWC x and HWIO w (k, k, cin, cout) on one CUDA
-    device, both float32 or both bfloat16, odd k, R dividing h: prep_x and
-    prep_w, then the kernel, which writes NHWC (n, h, w, cout) in x's dtype.
-    Not differentiable: raises under autograd."""
-    y = launch_lowcin("lowcin_conv_nhwc", x, w, R, nhwc=True)
+    device, both float32 or both bfloat16, odd k, R dividing h: the kernel
+    reads x as it lies (no padded or channel-major copy) and writes NHWC
+    (n, h, w, cout) in x's dtype. Not differentiable: raises under autograd.
+    Shared memory as ``launch_nhwc`` says."""
+    check_operands("lowcin_conv_nhwc", x, w)
+    check_conv("lowcin_conv_nhwc", x, w, R)
+    y = launch_nhwc("vct_lowcin_nhwc", x, x, w, dx_outer=True)
     lowcin_conv_nhwc_cuda.launches += 1
     return y
 
@@ -67,8 +67,8 @@ def lowcin_conv(x: torch.Tensor, w: torch.Tensor, R: int = 16) -> torch.Tensor:
 
 
 def main(argv: Optional[List[str]] = None, shapes=SHAPES) -> List[dict]:
-    return run_shapes(lowcin_conv, "K7, the channel-major conv prototype with "
-                      "NHWC out (pallas_conv3)", argv, shapes)
+    return run_shapes(lowcin_conv, "K7, the low-cin conv prototype with NHWC "
+                      "out (pallas_conv3)", argv, shapes)
 
 
 if __name__ == "__main__":

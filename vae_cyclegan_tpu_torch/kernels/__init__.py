@@ -57,11 +57,13 @@ _SIGNATURES = {
     "vct_dw_scratch_floats": (ctypes.c_longlong, [_I] * 6),
     # (x, g, dw, scratch, n, cin, cout, h, w, k, dtype, stream)
     "vct_starved_dw": (_I, [_P] * 4 + [_I] * 7 + [_P]),
-    # (xp, w, y, n, h, w, cin, cout, k, R, dtype, stream)
+    # (xp, wk, y, n, h, w, cin, cout, k, fold, dtype, stream), K5
     "vct_conv_proto": (_I, [_P] * 3 + [_I] * 8 + [_P]),
-    # (xf, wdx, y, n, h, w, cin_p, cout, k, R, wp, xlen, nhwc, dtype, stream)
+    # (x, wk, y, n, h, w, cin, cout, k, fold, dtype, stream), K7
+    "vct_lowcin_nhwc": (_I, [_P] * 3 + [_I] * 8 + [_P]),
+    # (xf, wdx, y, n, h, w, cin_p, cout, k, R, wp, xlen, dtype, stream), K6
     "vct_lowcin_conv": (_I, [_P] * 3 + [_I] * 8 + [ctypes.c_longlong]
-                        + [_I] * 2 + [_P]),
+                        + [_I] + [_P]),
     # (p, g, out, mk, nk, kk, steps, dtype, stream)
     "vct_dot_probe": (_I, [_P] * 3 + [_I] * 5 + [_P]),
 }
