@@ -44,13 +44,14 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               step at image 64, base 16
   8. experiments: the four conv prototypes of experiments/ (K5-K8): each
               kernel against its plain version at the prototypes' shapes
-              (batch 24, bf16) and at edge shapes (f32 and bf16; K7 also
-              at planes of k / 2 + 1), bit for bit on a second launch, R
-              not dividing h refused; then each prototype's entry point
+              (batch 24, bf16) and at edge shapes (f32 and bf16; K6 and K7
+              also at planes of k / 2 + 1), bit for bit on a second launch,
+              R not dividing h refused; then each prototype's entry point
               (``main``) at its default batch, 24, whose calls must equal
               its kernel's launches; kernel, plain version and library call
               timed at the prototypes' shapes, each conv shape beside its
-              bound and the kernel's factor over it
+              bound and the kernel's factor over it; K8 and `steps` x
+              torch.mm in five alternating turns (min / median / max)
   9. times:   kernel vs plain vs the library call (CUDA events), each
               kernel's bound (bytes over HBM bandwidth or operations over
               the peak rate, whichever is larger), the two IN kernels and
@@ -60,9 +61,11 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               latency per
               batch size and training step time at batch 4 and 24 (host
               clock, median), device busy time and idle share, peak device
-              memory, profiler summaries (a device time the profiler did not
-              record in three profiler runs is printed as not measured and left
-              out of the summary; the CUDA-event times are always taken),
+              memory, profiler summaries (device times count the launches
+              the profiler recorded; one it did not record in three
+              sessions, or above 1.1x its CUDA-event time, is printed as
+              not measured and left out of the summary; the CUDA-event
+              times are always taken),
               and per training step each hand kernel's device time (a
               kernel that launched must show in a profile that saw the
               device), with the IN kernels' byte bound per step
@@ -269,22 +272,28 @@ EXP_CONVS = (
 )
 # each conv kernel's CUDA function, as the profiler names it
 EXP_KERNEL_NAMES = {"conv_proto": "conv_proto_nhwc_kernel",
-                    "lowcin_conv_cm": "lowcin_kernel",
-                    "lowcin_conv_nhwc": "lowcin_nhwc_kernel"}
+                    "lowcin_conv_cm": "lowcin_cm_kernel",
+                    "lowcin_conv_nhwc": "lowcin_nhwc_kernel",
+                    "dot_probe": "dot_probe_kernel"}
 EXP_BATCH = 24   # the prototypes' batch
 # edge shapes (h, w, cin, cout, k, R), tests/test_torch_kernels.py's
 # PROTO_CASES: k = 7, 5, 3; cin = 3, 5 (the NHWC core's register-staged
 # loader), 8, 32, 64 (its cp.async one); widths off the multiple of 8 and
 # ragged column tiles; two R per shape; cout 3, 6, 8 folded, 6 and 8 at k 7
 # and 16 narrow, 80 and 128 the 128-wide tile; 256 x 256 more tiles than a
-# block's slab ring holds
+# block's slab ring holds; for K6's flat loader w + 2p a multiple of 8 (no
+# zero columns) and not, and h that the card's bands do not divide (the last
+# band's slab past the zero row the wrap columns read, and past the image)
 EXP_EDGES = [(16, 20, 3, 8, 7, 8), (16, 20, 3, 8, 7, 16), (24, 30, 5, 6, 5, 8),
              (24, 30, 5, 6, 5, 12), (32, 36, 8, 16, 3, 16),
              (32, 36, 8, 16, 3, 4), (16, 24, 64, 3, 7, 8),
              (32, 32, 32, 64, 3, 16), (8, 130, 64, 128, 3, 8),
              (6, 300, 64, 80, 3, 6), (10, 36, 32, 3, 3, 10),
-             (8, 20, 8, 6, 7, 8), (12, 20, 5, 8, 3, 4), (256, 256, 8, 64, 3, 16)]
-# K7 alone (its loader reflects): planes of k / 2 + 1, REFLECT_EDGES there
+             (8, 20, 8, 6, 7, 8), (12, 20, 5, 8, 3, 4), (256, 256, 8, 64, 3, 16),
+             (4, 26, 8, 16, 7, 4), (6, 30, 64, 3, 3, 3), (5, 18, 64, 3, 7, 5),
+             (3, 13, 5, 8, 5, 1), (7, 9, 3, 64, 7, 7), (9, 10, 32, 128, 3, 9)]
+# K7 and K6 (K7's loader reflects; K6's rows are mostly wrap columns):
+# planes of k / 2 + 1, REFLECT_EDGES there
 EXP_REFLECT_EDGES = [(2, 2, 5, 8, 3, 2), (3, 3, 8, 64, 5, 3),
                      (4, 4, 3, 80, 7, 4), (4, 4, 32, 3, 7, 2),
                      (2, 2, 64, 16, 3, 1)]
@@ -350,6 +359,41 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 PROFILE_TRIES = 3
+# Late in a long run a profiler session loses device records (in one run:
+# 10 calls kept 9, 5 kept 2 or 3, 200 kept 195, and 3 long K8 calls mostly
+# none) or keeps one longer than its call took, though a fresh process keeps
+# them all; a pause or trailing kernels in the session did not help. So the
+# device times count only what was recorded (launch_device_ms,
+# kernel_device_ms) and kernel_vs_plain drops a wrapper's device time that
+# exceeds its CUDA-event time by more than DEVICE_SLACK.
+DEVICE_SLACK = 1.1
+
+
+def profile_session(fn, iters: int):
+    """`iters` calls of `fn` under torch.profiler; the profile."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def device_kernels(events):
+    """The CUDA kernels of `events`."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_us(events, keys=None) -> tuple:
+    """(summed self device time in us, launches) of the CUDA kernels in
+    `events` whose profiler names hold one of `keys` (all of them without
+    keys)."""
+    hits = [e for e in device_kernels(events)
+            if keys is None or any(key in e.key for key in keys)]
+    return (sum(e.self_device_time_total for e in hits),
+            sum(e.count for e in hits))
 
 
 def profiled(fn, iters: int):
@@ -360,35 +404,52 @@ def profiled(fn, iters: int):
     empty buffer; the timings from CUDA events are unaffected) is run again,
     up to PROFILE_TRIES times; after that the device time is None: not
     measured."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     for _ in range(PROFILE_TRIES):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        us = sum(e.self_device_time_total for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        events = profile_session(fn, iters).key_averages()
+        us = device_us(events)[0]
         if us > 0:
             return us / 1e3 / iters, events
         say(f"profiler: a session over {iters} calls saw no device time")
     return None, events
 
 
+def launch_device_ms(fn, iters: int, key: str):
+    """The device time per call of `fn`, a wrapper whose every call launches
+    the kernel whose profiler name holds `key` last: the device time of the
+    session's kernels up to its last recorded `key` launch, over the `key`
+    launches recorded. Late in a long run a session loses the device
+    records of its last launches (10 calls kept 9, 5 kept 2 or 3, 3 long K8
+    calls at times none), so the session's time over the calls made would
+    undercount; over the whole calls recorded it does not. None where no
+    session of PROFILE_TRIES recorded a launch of `key`: not measured."""
+    for _ in range(PROFILE_TRIES):
+        kernels = sorted(device_kernels(profile_session(fn, iters).events()),
+                         key=lambda e: e.time_range.start)
+        ends = [i for i, e in enumerate(kernels) if key in e.key]
+        if len(ends) < iters:
+            say(f"profiler: a session over {iters} calls recorded "
+                f"{len(ends)} of their {iters} {key} launches")
+        if ends:
+            us = sum(e.time_range.elapsed_us() for e in kernels[:ends[-1] + 1])
+            return us / 1e3 / len(ends)
+    return None
+
+
 def kernel_device_ms(fn, iters: int, keys):
     """The device time per launch of the CUDA kernels whose profiler names
     hold one of `keys` (a kernel alone, without its wrapper's other work),
-    over `iters` calls of `fn` under the profiler: their summed time over
-    the launches it recorded (a session can record fewer launches than were
-    made, so dividing by the calls would undercount); None where it
-    recorded none."""
-    events = profiled(fn, iters)[1]
-    hits = [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and any(key in e.key for key in keys)]
-    n = sum(e.count for e in hits)
-    return sum(e.self_device_time_total for e in hits) / 1e3 / n if n else None
+    over `iters` calls of `fn` under the profiler: the median of the
+    launches it recorded (a session can record fewer launches than were
+    made, so dividing by the calls would undercount, and one run's summed
+    time of a kernel fell far below its other runs'); a session that
+    recorded none is run again, up to PROFILE_TRIES times; None after."""
+    for _ in range(PROFILE_TRIES):
+        us = sorted(e.time_range.elapsed_us()
+                    for e in device_kernels(profile_session(fn, iters).events())
+                    if any(key in e.key for key in keys))
+        if us:
+            return us[len(us) // 2] / 1e3
+    return None
 
 
 def ms_text(ms, digits: int = 4) -> str:
@@ -411,13 +472,20 @@ def time_calls(fns: dict, iters: int) -> dict:
     return ms
 
 
-def kernel_vs_plain(kernel_fn, plain_fn, library_fn, iters: int) -> dict:
+def kernel_vs_plain(kernel_fn, plain_fn, library_fn, iters: int,
+                    key: str) -> dict:
     """time_calls of the plain version, the kernel and the library call that
-    computes the same function; then the device times of the kernel and the
-    plain version, where the profiler saw them."""
+    computes the same function; then the device times of the kernel's
+    wrapper (per recorded launch of its kernel, named by `key`:
+    launch_device_ms) and of the plain version, where the profiler saw
+    them."""
     t = time_calls({"plain_ms": plain_fn, "ms": kernel_fn,
                     "library_ms": library_fn}, iters)
-    t["device_ms"] = profiled(kernel_fn, iters)[0]
+    t["device_ms"] = launch_device_ms(kernel_fn, iters, key)
+    if t["device_ms"] is not None and t["device_ms"] > DEVICE_SLACK * t["ms"]:
+        say(f"profiler: a {key} call's device time {t['device_ms']:.4f} ms "
+            f"exceeds its CUDA-event time {t['ms']:.4f} ms: not measured")
+        t["device_ms"] = None
     t["plain_device_ms"] = profiled(plain_fn, iters)[0]
     return t
 
@@ -1177,7 +1245,8 @@ def phase_train_times(card: str, tr: dict) -> dict:
         wrot = rotate(randn((cout, cin, k, k), 32, b16, 0.05)).contiguous()
         t = kernel_vs_plain(lambda: zero_conv_cuda(g, wrot),
                             lambda: zero_conv(g, wrot),
-                            lambda: F.conv2d(g, wrot, padding=k // 2), 10)
+                            lambda: F.conv2d(g, wrot, padding=k // 2), 10,
+                            HAND_KERNELS["K3"][0])
         dx_work.append(conv_work(g.shape, cin, k, (IMAGE, IMAGE), 2, 2))
         show(f"starved_conv zero_same {name} dx g{tuple(g.shape)} "
              f"wrot{tuple(wrot.shape)}", t, dx_work[-1])
@@ -1185,7 +1254,8 @@ def phase_train_times(card: str, tr: dict) -> dict:
         xp = reflect_pad(x, k // 2)
         t = kernel_vs_plain(
             lambda: dw_cuda(x, g, k), lambda: dw_reference(x, g, k),
-            lambda: torch.nn.grad.conv2d_weight(xp, (cout, cin, k, k), g), 10)
+            lambda: torch.nn.grad.conv2d_weight(xp, (cout, cin, k, k), g), 10,
+            HAND_KERNELS["K4"][1])  # its reduce, the last launch of a call
         # x and g read once (bf16), dw written once (f32)
         _, ops = conv_work(x.shape, cout, k, (IMAGE, IMAGE), 2, 2)
         dw_work.append((2 * (x.numel() + g.numel()) + 4 * cout * cin * k * k,
@@ -1220,7 +1290,8 @@ def phase_times(card: str, sl: dict) -> dict:
         x = randn(shape, 7, b16)
         t = kernel_vs_plain(lambda: in_act_cuda(x, "identity", "act_norm"),
                             lambda: fused_reference(x, "identity", "act_norm"),
-                            lambda: F.instance_norm(x), 200)
+                            lambda: F.instance_norm(x), 200,
+                            HAND_KERNELS["K1"][0])
         times[("in_act", b)] = {**t, **in_act_bound(shape, b16)}
         show(f"in_act {shape} identity/act_norm", t)
         total, work = None, []
@@ -1231,7 +1302,8 @@ def phase_times(card: str, sl: dict) -> dict:
             xp = reflect_pad(x, kk // 2)
             t = kernel_vs_plain(lambda: reflect_conv_cuda(x, w),
                                 lambda: reflect_conv(x, w),
-                                lambda: F.conv2d(xp, w), 20)
+                                lambda: F.conv2d(xp, w), 20,
+                                HAND_KERNELS["K3"][0])
             show(f"starved_conv {name} x{tuple(x.shape)} w{tuple(w.shape)}", t)
             total = add_times(total, t)
             work.append(conv_work(x.shape, cout, kk, (IMAGE, IMAGE), 2, 2))
@@ -1298,7 +1370,8 @@ def phase_in_times(card: str) -> dict:
     x = randn(IDENTITY_SITE, 7, b16)
     t = kernel_vs_plain(lambda: in_act_tiled_cuda(x, "identity", "act_norm"),
                         lambda: tiled_reference(x, "identity", "act_norm"),
-                        lambda: F.instance_norm(x), 200)
+                        lambda: F.instance_norm(x), 200,
+                        HAND_KERNELS["K2"][0])
     say(f"time in_act_tiled {IDENTITY_SITE} identity/act_norm bf16: kernel "
         f"{t['ms']:.4f} ms (device {ms_text(t['device_ms'])}), plain "
         f"{t['plain_ms']:.4f} ms (device {ms_text(t['plain_device_ms'])}), "
@@ -1377,7 +1450,8 @@ def phase_experiment_kernels() -> dict:
         cases = [(EXP_BATCH, s, s, cin, cout, k, R, b16)
                  for _, s, cin, cout, k, R in module.SHAPES]
         edges = EXP_EDGES + (EXP_REFLECT_EDGES
-                             if name == "lowcin_conv_nhwc" else [])
+                             if name in ("lowcin_conv_nhwc", "lowcin_conv_cm")
+                             else [])
         cases += [(2, h, w, cin, cout, k, R, dtype)
                   for h, w, cin, cout, k, R in edges
                   for dtype in (b16, f32)]
@@ -1487,9 +1561,13 @@ def phase_experiments(card: str) -> dict:
                 memory_format=memory)
             wl = w.permute(3, 2, 0, 1).contiguous(memory_format=memory)
             t = kernel_vs_plain(lambda: kernel(x, w, R), lambda: plain(x, w),
-                                lambda: F.conv2d(xp, wl), 5)
-            work.append(conv_work((EXP_BATCH, cin, s, s), cout, k, (s, s),
-                                  2, 2))
+                                lambda: F.conv2d(xp, wl), 5,
+                                EXP_KERNEL_NAMES[name])
+            # K6's function writes every one of its Wp columns
+            out_w = (lowcin_conv2.geometry(s, cin, k)[2]
+                     if name == "lowcin_conv_cm" else s)
+            work.append(conv_work((EXP_BATCH, cin, s, s), cout, k,
+                                  (s, out_w), 2, 2))
             show(f"{name} {label} x{tuple(x.shape)} R{R}", t,
                  kernel_device_ms(lambda: kernel(x, w, R), 5,
                                   (EXP_KERNEL_NAMES[name],)),
@@ -1505,13 +1583,51 @@ def phase_experiments(card: str) -> dict:
         t = kernel_vs_plain(
             lambda: dw_dot_probe.dot_probe_cuda(p, g, steps),
             lambda: dw_dot_probe.dot_probe_reference(p, g, steps),
-            lambda: [torch.mm(p, gt) for _ in range(steps)], 3)
+            lambda: [torch.mm(p, gt) for _ in range(steps)], 3,
+            EXP_KERNEL_NAMES["dot_probe"])
+        # the wrapper launches nothing but its kernel
         show(f"dot_probe {label} x{steps}", t, t["device_ms"])
         total = add_times(total, t)
         work.append((2 * (mk + nk) * kk + 4 * mk * nk,
                      2.0 * mk * nk * kk * steps))
     times["dot_probe"] = {**total, **sum_bounds(work, "bf16")}
+    probe_turns(card)
     return {"launches": launches, "times": times}
+
+
+PROBE_TURNS = 5
+
+
+def probe_turns(card: str) -> None:
+    """K8 against `steps` x torch.mm, summed over the six probes (CUDA events,
+    3 calls a probe), in PROBE_TURNS turns that alternate which side goes
+    first; each side's min, median and max. The library's figure moved 53%
+    between two runs on one card model, so the two are compared only
+    within a run, turn by turn."""
+    b16 = torch.bfloat16
+    sides = {"dot_probe": [], "torch.mm": []}
+    fns = {"dot_probe": [], "torch.mm": []}
+    for _, mk, nk, kk, steps in dw_dot_probe.SHAPES:
+        p = torch.ones((mk, kk), dtype=b16, device=DEV)
+        g = torch.ones((nk, kk), dtype=b16, device=DEV)
+        fns["dot_probe"].append(
+            lambda p=p, g=g, steps=steps: dw_dot_probe.dot_probe_cuda(
+                p, g, steps))
+        fns["torch.mm"].append(
+            lambda p=p, gt=g.T, steps=steps: [torch.mm(p, gt)
+                                              for _ in range(steps)])
+    for fn in fns["dot_probe"] + fns["torch.mm"]:
+        fn()
+    torch.cuda.synchronize()
+    for turn in range(PROBE_TURNS):
+        order = list(sides) if turn % 2 == 0 else list(sides)[::-1]
+        for side in order:
+            sides[side].append(sum(cuda_ms(fn, 3) for fn in fns[side]))
+    for side, ms in sides.items():
+        each = ", ".join(f"{m:.4f}" for m in ms)
+        say(f"time dot_probe turns, {side} over the six probes: min "
+            f"{min(ms):.4f} / median {float(np.median(ms)):.4f} / max "
+            f"{max(ms):.4f} ms of {len(ms)} turns ({each}) [{card}]")
 
 
 def main() -> None:

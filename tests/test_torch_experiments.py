@@ -214,6 +214,41 @@ def test_kernel_inputs_hold_the_reflect_pad(case):
     torch.testing.assert_close(got, want.reshape(got.shape), atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
+def test_wp_wide_pad_is_jax_channel_major_input(case, dtype):
+    """K6's input, ``common.pad_input`` at a row width of Wp, transposed to
+    channel-major with cin zero-padded to cin_p, is JAX's
+    ``pallas_conv2.prep_x`` exactly: at JAX's own Wp (w + 2p rounded up to
+    128) over the (h + 2p) * Wp + 128 elements prep_x holds, the rest of
+    the zero row zeros; at the card's Wp (rounded up to 8) the port's
+    ``prep_x``, which the plain version reads."""
+    h, wd, cin, _, k, _ = case
+    x, _, jx, _ = _operands(case, dtype)
+    p = k // 2
+    _, cin_p, wp, _ = lowcin_conv2.geometry(wd, cin, k)
+
+    def channel_major(width):
+        xp = common.pad_input(x, k, width)
+        assert xp.shape == (2, h + 2 * p + 1, width * cin)
+        cm = xp.view(2, h + 2 * p + 1, width, cin).permute(0, 3, 1, 2)
+        return torch.nn.functional.pad(cm.reshape(2, cin, -1),
+                                       (0, 0, 0, cin_p - cin))
+
+    jwp = -(-(wd + 2 * p) // 128) * 128
+    want = np.asarray(_jax_script("pallas_conv2").prep_x(jx, k), np.float32)
+    got = channel_major(jwp).float().numpy()
+    assert want.shape == (2, cin_p, (h + 2 * p) * jwp + 128)
+    np.testing.assert_array_equal(got[..., :want.shape[-1]], want)
+    assert not got[..., want.shape[-1]:].any()
+    got, mine = channel_major(wp), lowcin_conv2.prep_x(x, k)
+    assert got.dtype == mine.dtype == dtype
+    torch.testing.assert_close(got[..., :mine.shape[-1]], mine, atol=0,
+                               rtol=0)
+    assert not got[..., mine.shape[-1]:].any()
+
+
 def test_channel_major_plain_version_holds_every_column():
     """K6's plain version in the kernel's layout: its w real columns are the
     conv; every column is the tap sum over the flat input, wrapping into the

@@ -473,16 +473,26 @@ def test_tiled_slice_on_cuda_launches_each_picked_site_and_matches_cpu(cuda):
 # (k 3 and 7), 6 (k 5) and 8 (k 3) fold the dx taps into N, 6 and 8 at k 7
 # and 16 take the narrow tiles, 80 and 128 the 128-wide one (80: a ragged
 # channel tile); widths 20, 36, 130 and 300 leave a ragged last column tile;
-# 256 x 256 at cin 8 gives more tiles than a block's two-slab ring holds
+# 256 x 256 at cin 8 gives more tiles than a block's two-slab ring holds.
+# For K6's flat Wp-wide loader: w + 2p already a multiple of 8 (26 at k 7,
+# 30 at k 3, 18 at k 7 folded: no zero columns) and not (13 at k 5, 9 at k
+# 7, 10 at k 3); h = 3, 5, 6, 7, 9, which the card's bands of 2 or 4 rows do
+# not divide, so the last band's slab runs past the zero row (whose taps the
+# last row's wrap columns read) and past the image; a row narrower than one
+# 256-column tile (9, 10), and the 128-wide tile
 PROTO_CASES = [(16, 20, 3, 8, 7, 8), (16, 20, 3, 8, 7, 16),
                (24, 30, 5, 6, 5, 8), (24, 30, 5, 6, 5, 12),
                (32, 36, 8, 16, 3, 16), (32, 36, 8, 16, 3, 4),
                (16, 24, 64, 3, 7, 8), (32, 32, 32, 64, 3, 16),
                (8, 130, 64, 128, 3, 8), (6, 300, 64, 80, 3, 6),
                (10, 36, 32, 3, 3, 10), (8, 20, 8, 6, 7, 8),
-               (12, 20, 5, 8, 3, 4), (256, 256, 8, 64, 3, 16)]
-# K7 reads x with the reflect halo in its loader: the tightest reflection,
-# h and w = k / 2 + 1 (k 3, 5, 7), on both loader paths and all tile kinds
+               (12, 20, 5, 8, 3, 4), (256, 256, 8, 64, 3, 16),
+               (4, 26, 8, 16, 7, 4), (6, 30, 64, 3, 3, 3),
+               (5, 18, 64, 3, 7, 5), (3, 13, 5, 8, 5, 1),
+               (7, 9, 3, 64, 7, 7), (9, 10, 32, 128, 3, 9)]
+# The tightest reflection, h and w = k / 2 + 1 (k 3, 5, 7), on both loader
+# paths and all tile kinds: K7 reflects in its loader, K6 reads rows of Wp
+# = 8 with a zero column or more
 REFLECT_EDGES = [(2, 2, 5, 8, 3, 2), (3, 3, 8, 64, 5, 3), (4, 4, 3, 80, 7, 4),
                  (4, 4, 32, 3, 7, 2), (2, 2, 64, 16, 3, 1)]
 # kernel wrapper -> the plain version in the kernel's own output layout
@@ -514,16 +524,18 @@ def test_conv_prototype_kernel_matches_plain(cuda, name, h, w, cin, cout, k,
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("h,w,cin,cout,k,R", REFLECT_EDGES)
-def test_lowcin_nhwc_kernel_reflects_at_the_tightest_planes(cuda, h, w, cin,
-                                                           cout, k, R, dtype):
-    """K7 at planes one row and column wider than its reflect pad: every
-    slab position reflects, some twice over the plane; bit for bit on a
-    second launch."""
-    kernel = lowcin_conv3.lowcin_conv_nhwc_cuda
+@pytest.mark.parametrize("name", ["lowcin_conv_nhwc", "lowcin_conv_cm"])
+def test_lowcin_nhwc_kernel_reflects_at_the_tightest_planes(cuda, name, h, w,
+                                                           cin, cout, k, R,
+                                                           dtype):
+    """K7 and K6 at planes one row and column wider than the reflect pad:
+    every slab position reflects (K7), some twice over the plane; K6's
+    rows are mostly wrap columns; bit for bit on a second launch."""
+    kernel, plain = PROTO_KERNELS[name]
     x = _randn((2, h, w, cin), 38, cuda, dtype)
     wgt = _randn((k, k, cin, cout), 39, cuda, dtype, 0.05)
     got = kernel(x, wgt, R)
-    _assert_close(got, reflect_conv_reference(x, wgt))
+    _assert_close(got, plain(x, wgt))
     assert torch.equal(kernel(x, wgt, R), got)
 
 

@@ -1,12 +1,10 @@
-// Building blocks of K6's kernel (lowcin_conv.cu) and the dot probe
-// (dot_probe.cu); starved_conv.cu (K3), starved_dw.cu (K4) and nhwc_conv.cuh
-// (K5, K7) take parts of it (the mma, the tiles, the conversions).
-//
-// K6's kernel is an implicit GEMM whose operands both sit in shared
-// memory for the whole K loop: the weights, staged once per block, and the
-// slab of input under the block's output tile, staged once per tile. The K
-// loop then reads mma fragments straight from them, with no barrier and no
-// device-memory load inside it:
+// Building blocks of the tensor-core kernels: the mma and the element
+// conversions (every kernel on mma.sync), and the warp-level GEMM tile with a
+// weight-row operand that K3's kernel (starved_conv.cu) runs, whose operands
+// both sit in shared memory for the whole K loop: the weights, staged once
+// per block, and the slab of input under the block's output tile, staged
+// once per tile. The K loop then reads mma fragments straight from them,
+// with no barrier and no device-memory load inside it:
 //
 //   bf16: warp-level mma.sync.aligned.m16n8k16 (bf16 in, f32 accumulate); the
 //         block's four warps split its BM x BN output tile
@@ -14,7 +12,9 @@
 //         BM * BN / 128 elements of the tile
 //
 // Both sum each element's products in one fixed order (K ascending), so a
-// launch repeats bit for bit.
+// launch repeats bit for bit. The dot probe (dot_probe.cu), K4
+// (starved_dw.cu) and the NHWC conv core (nhwc_conv.cuh: K5, K6, K7) take
+// the mma, the conversions and the shared-memory limits.
 #pragma once
 
 #include <stdint.h>
@@ -72,26 +72,6 @@ struct Rows {
   }
   __device__ __forceinline__ float value(int row, int k) const {
     return to_f(*at(row, k));
-  }
-};
-
-// A GEMM operand gathered from an input slab in shared memory: element
-// (row, k) at p[row * stride + koff[k / 2] + (k & 1) * next], koff a table of
-// the slab offset of each contraction pair (k, k + 1), k even.
-template <typename T>
-struct Slab {
-  const T* p;
-  const int* koff;
-  int stride, next;
-  __device__ __forceinline__ const T* at(int row, int k) const {
-    return p + row * stride + koff[k >> 1];
-  }
-  __device__ __forceinline__ uint32_t pair(int row, int k) const {
-    const T* q = at(row, k);
-    return bits(q[0]) | (bits(q[next]) << 16);
-  }
-  __device__ __forceinline__ float value(int row, int k) const {
-    return to_f(at(row, k)[(k & 1) * next]);
   }
 };
 
@@ -181,94 +161,8 @@ struct Tile {
   }
 };
 
-// Copy `rows` rows of `width` elements into shared memory: dst[r * width + e]
-// = row_src(r)[e] for e < row_len(r), zeros after (row_len may exceed width:
-// it is clipped). Every load of a batch is issued before its stores, so a
-// thread waits on memory once per batch, not once per element. `vec`: every
-// row_src(r) is 16-byte aligned and width a multiple of 16 bytes, so 16-byte
-// loads and stores are used. All threads of the block call it.
-template <typename T, class Src, class Len>
-__device__ __forceinline__ void copy_rows(T* dst, int rows, int width,
-                                          bool vec, Src row_src, Len row_len) {
-  if (vec) {
-    constexpr int V = 16 / sizeof(T), kBatch = 8;
-    const int wv = width / V, total = rows * wv;
-    for (int i0 = 0; i0 < total; i0 += kThreads * kBatch) {
-      uint4 v[kBatch];
-      bool whole[kBatch];  // else the vector straddles the row's end
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        const int i = i0 + b * kThreads + threadIdx.x;
-        v[b] = make_uint4(0u, 0u, 0u, 0u);
-        whole[b] = true;
-        if (i < total) {
-          const int r = i / wv, e = (i - r * wv) * V;
-          const int len = min(row_len(r), width);
-          const T* s = row_src(r) + e;
-          if (e + V <= len) {
-            v[b] = *reinterpret_cast<const uint4*>(s);
-          } else if (e < len) {  // rare: element by element, here and now
-            whole[b] = false;
-            for (int j = 0; j < V; ++j)
-              dst[(long long)i * V + j] = e + j < len ? s[j] : from_f<T>(0.f);
-          }
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        const int i = i0 + b * kThreads + threadIdx.x;
-        if (i < total && whole[b]) reinterpret_cast<uint4*>(dst)[i] = v[b];
-      }
-    }
-  } else {
-    constexpr int kBatch = 16;
-    const int total = rows * width;
-    const T zero = from_f<T>(0.f);
-    for (int i0 = 0; i0 < total; i0 += kThreads * kBatch) {
-      T v[kBatch];
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        const int i = i0 + b * kThreads + threadIdx.x;
-        v[b] = zero;
-        if (i < total) {
-          const int r = i / width, e = i - r * width;
-          if (e < row_len(r)) v[b] = row_src(r)[e];
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        const int i = i0 + b * kThreads + threadIdx.x;
-        if (i < total) dst[i] = v[b];
-      }
-    }
-  }
-}
-
 // bytes rounded up to 16
 __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) / 16 * 16; }
-
-// Tiles each block of a launch walks: about eight blocks for each of an
-// H100's 132 SMs (so one block's staged weights serve several tiles), at
-// least one tile each.
-inline int tiles_per_block(long long tiles) {
-  const long long target = 132LL * 8;
-  return (int)(tiles > target ? (tiles + target - 1) / target : 1);
-}
-
-// Launch `kernel` with `smem` bytes of dynamic shared memory, raising the
-// kernel's limit first where it needs more than the default 48 KB.
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                   Args... args) {
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
 
 }  // namespace igemm
 }  // namespace vct

@@ -32,7 +32,7 @@
 namespace {
 
 template <typename T, int R, int BM, int BN, int WARPS_M, bool FOLD>
-__global__ void __launch_bounds__(vct::nhwc::kThreads)
+__global__ void __launch_bounds__(vct::nhwc::kThreads, 1)
     lowcin_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ wk,
                        T* __restrict__ y, vct::nhwc::Shape s) {
   vct::nhwc::conv_body<T, R, BM, BN, WARPS_M, FOLD,

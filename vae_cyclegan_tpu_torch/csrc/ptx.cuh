@@ -1,7 +1,7 @@
 // The asynchronous copies and matrix loads the tensor-core kernels share
 // (starved_dw.cu, and the NHWC conv core nhwc_conv.cuh): cp.async of 16
-// bytes from device to shared memory in commit groups, and ldmatrix of four
-// 8 x 8 bf16 matrices.
+// bytes from device to shared memory in commit groups, ldmatrix of four
+// 8 x 8 bf16 matrices, and stmatrix of four, transposed.
 #pragma once
 
 #include <stdint.h>
@@ -50,6 +50,18 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], unsigned addr) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// the four 8 x 8 bf16 matrices of r (r[i]: this lane's pair of matrix i, row
+// lane / 4, columns 2 (lane % 4) and + 1: an m16n8 C fragment's rows) stored
+// transposed: lane l gives the address of stored row l % 8 of matrix l / 8,
+// which receives column l % 8 of it as 16 bytes
+__device__ __forceinline__ void stmatrix_x4_trans(unsigned addr,
+                                                  const uint32_t r[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      ::"r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
 }
 
 }  // namespace ptx

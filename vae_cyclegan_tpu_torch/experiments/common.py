@@ -149,6 +149,26 @@ def reflect_pad_into(dst: torch.Tensor, src: torch.Tensor, p: int, hdim: int,
     dst.narrow(hdim, p + h, p).copy_(dst.narrow(hdim, h - 1, p).flip(hdim))
 
 
+def pad_input(x: torch.Tensor, k: int,
+              width: Optional[int] = None) -> torch.Tensor:
+    """NHWC x -> (n, h + 2p + 1, width * cin): reflect pad by p = k // 2,
+    zeros in the columns past w + 2p up to `width` (default w + 2p: none)
+    and one zero row below (the TPU kernels' last chunk reads into it), each
+    padded row one flat run; written in one pass over x. K5 reads it at w +
+    2p, K6 at its Wp."""
+    n, h, wd, cin = x.shape
+    p = k // 2
+    width = wd + 2 * p if width is None else width
+    if width < wd + 2 * p:
+        raise ValueError(f"pad_input: width {width} is below w + 2p = "
+                         f"{wd + 2 * p}")
+    xp = x.new_empty((n, h + 2 * p + 1, width, cin))
+    reflect_pad_into(xp[:, :h + 2 * p, :wd + 2 * p], x, p, 1, 2)
+    xp[:, :h + 2 * p, wd + 2 * p:].zero_()
+    xp[:, h + 2 * p].zero_()
+    return xp.view(n, h + 2 * p + 1, width * cin)
+
+
 def reflect_conv_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version of the three conv prototypes' function: the reflect pad
     of NHWC x, then ``F.conv2d`` in float32 with HWIO w, then one rounding to

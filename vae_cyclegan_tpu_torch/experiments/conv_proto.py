@@ -29,9 +29,9 @@ from vae_cyclegan_tpu_torch.experiments.common import (
     conv_gflop,
     conv_operands,
     launch_nhwc,
+    pad_input,
     parse_args,
     reflect_conv_reference,
-    reflect_pad_into,
     resolve_device,
 )
 from vae_cyclegan_tpu_torch.experiments.timing import median_ms, ms_text
@@ -45,18 +45,6 @@ SHAPES = [
     ("tail k7 64->3 @256", 256, 64, 3, 7, 8),
 ]
 ITERS = 10
-
-
-def pad_input(x: torch.Tensor, k: int) -> torch.Tensor:
-    """NHWC x -> (n, h + 2p + 1, (w + 2p) * cin): reflect pad by p = k // 2,
-    one zero row below (the TPU kernel's last chunk reads into it), each
-    padded row one flat run; written in one pass over x."""
-    n, h, wd, cin = x.shape
-    p = k // 2
-    xp = x.new_empty((n, h + 2 * p + 1, wd + 2 * p, cin))
-    reflect_pad_into(xp[:, :h + 2 * p], x, p, 1, 2)
-    xp[:, h + 2 * p].zero_()
-    return xp.view(n, h + 2 * p + 1, (wd + 2 * p) * cin)
 
 
 def conv_proto_cuda(x: torch.Tensor, w: torch.Tensor, R: int) -> torch.Tensor:

@@ -4,14 +4,15 @@ forward as k dx-shifted GEMMs per (image, R-row chunk),
 
 Counterpart of ``experiments/pallas_conv2.py`` (``lowcin_conv`` ``:85``, its
 ``pallas_call`` ``:95``; ``prep_x`` ``:64``, ``prep_w`` ``:77``; ``main``
-``:141``). The input goes in channel-major, (n, cin_p, (h + 2p) * Wp) plus a
-zero tail, and the kernel (``csrc/lowcin_conv.cu``, channel-major mode)
-writes the channel-major output (n, cout, h * Wp), all Wp columns of each
-row; ``lowcin_conv`` slices the w real columns and transposes to NHWC, as the
-JAX wrapper does in XLA. The TPU's tile sizes become the card's: cin_p a
-multiple of 8 (16 bytes of bf16, 8 sublanes there too) and Wp = w + 2p
-rounded up to 8 (128 lanes there), with a zero tail of 2p rounded up to 8
-(128 there).
+``:141``). The kernel (``csrc/lowcin_conv.cu``, on the NHWC conv core of
+``csrc/nhwc_conv.cuh``) writes the channel-major output (n, cout, h * Wp),
+all Wp columns of each row, from the reflect-padded copy of x Wp columns
+wide (``common.pad_input``), which holds JAX's channel-major input
+(``prep_x``) position-major; ``lowcin_conv`` slices the w real columns and
+transposes to NHWC, as the JAX wrapper does in XLA. The TPU's tile sizes
+become the card's: Wp = w + 2p rounded up to 8 (128 lanes there) and cin
+zero-filled to 16-byte chunks (8 sublanes there). ``prep_x`` and ``prep_w``
+keep JAX's layouts for the plain version and the tests.
 
     python -m vae_cyclegan_tpu_torch.experiments.lowcin_conv2 [--batch 24] [--device cuda]
 
@@ -34,6 +35,8 @@ from vae_cyclegan_tpu_torch.experiments.common import (
     conv_gflop,
     conv_operands,
     launch,
+    nhwc_weight,
+    pad_input,
     parse_args,
     reflect_conv_reference,
     reflect_pad_into,
@@ -90,29 +93,24 @@ def prep_w(w: torch.Tensor, cin_p: int) -> torch.Tensor:
 def lowcin_conv_cm_cuda(x: torch.Tensor, w: torch.Tensor,
                         R: int) -> torch.Tensor:
     """Launch K6 on contiguous NHWC x and HWIO w (k, k, cin, cout) on one CUDA
-    device, both float32 or both bfloat16, odd k, R dividing h: prep_x and
-    prep_w, then the kernel (csrc/lowcin_conv.cu). Returns its channel-major
-    output (n, cout, h * Wp) in x's dtype, every Wp column of each row (the
-    w real ones first). Not differentiable: raises under autograd. A block
-    holds the weights of min(cout, 64) output channels (k*k*cin_p values
-    each) and a cin_p x k x (64 + k - 1) slab in shared memory, 227 KB at
-    most (the prototype's largest, U3 and the tail, take 104 and 90 KB in
-    bf16); a shape past that fails to launch (RuntimeError)."""
+    device, both float32 or both bfloat16, odd k, R dividing h: pad_input at
+    Wp columns and the weight in K7's order (``nhwc_weight``, dx outermost),
+    then the kernel (csrc/lowcin_conv.cu). Returns its channel-major output
+    (n, cout, h * Wp) in x's dtype, every Wp column of each row (the w real
+    ones first). Not differentiable: raises under autograd. Shared memory as
+    ``common.launch_nhwc`` says; a shape past it fails to launch
+    (RuntimeError)."""
     name = "lowcin_conv_cm"
     check_operands(name, x, w)
     check_conv(name, x, w, R)
     n, h, wd, cin = x.shape
     k, _, _, cout = w.shape
-    if n * (h // R) > 65535:
-        raise ValueError(f"{name}: {n} images x {h // R} chunks exceed the "
-                         "grid's 65535")
-    _, cin_p, wp, _ = geometry(wd, cin, k)
-    xf = prep_x(x, k)
-    # wdx's rows per output channel: (cout, k * k * cin_p), dx major
-    wk = prep_w(w, cin_p).transpose(0, 1).reshape(cout, -1).contiguous()
+    _, _, wp, _ = geometry(wd, cin, k)
+    xp = pad_input(x, k, wp)
+    wk, fold = nhwc_weight(w, dx_outer=True)
     y = torch.empty((n, cout, h * wp), dtype=x.dtype, device=x.device)
-    launch("vct_lowcin_conv", x.device, xf.data_ptr(), wk.data_ptr(),
-           y.data_ptr(), n, h, wd, cin_p, cout, k, R, wp, xf.shape[-1],
+    launch("vct_lowcin_conv", x.device, xp.data_ptr(), wk.data_ptr(),
+           y.data_ptr(), n, h, wd, cin, cout, k, wp, int(fold),
            DTYPE_CODES[x.dtype])
     lowcin_conv_cm_cuda.launches += 1
     return y

@@ -61,9 +61,8 @@ _SIGNATURES = {
     "vct_conv_proto": (_I, [_P] * 3 + [_I] * 8 + [_P]),
     # (x, wk, y, n, h, w, cin, cout, k, fold, dtype, stream), K7
     "vct_lowcin_nhwc": (_I, [_P] * 3 + [_I] * 8 + [_P]),
-    # (xf, wdx, y, n, h, w, cin_p, cout, k, R, wp, xlen, dtype, stream), K6
-    "vct_lowcin_conv": (_I, [_P] * 3 + [_I] * 8 + [ctypes.c_longlong]
-                        + [_I] + [_P]),
+    # (xp, wk, y, n, h, w, cin, cout, k, wp, fold, dtype, stream), K6
+    "vct_lowcin_conv": (_I, [_P] * 3 + [_I] * 9 + [_P]),
     # (p, g, out, mk, nk, kk, steps, dtype, stream)
     "vct_dot_probe": (_I, [_P] * 3 + [_I] * 5 + [_P]),
 }
