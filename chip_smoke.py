@@ -50,8 +50,12 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               (``main``) at its default batch, 24, whose calls must equal
               its kernel's launches; kernel, plain version and library call
               timed at the prototypes' shapes, each conv shape beside its
-              bound and the kernel's factor over it; K8 and `steps` x
-              torch.mm in five alternating turns (min / median / max)
+              bound and the kernel's factor over it; K8's launch plan per
+              probe (tile, cluster, CTAs, waves, the clusters the card
+              places at once) and its device time per probe and summed (in
+              a child process, ``chip_smoke.py --k8-device``, where this one
+              kept no record); K8 and `steps` x torch.mm in five
+              alternating turns (min / median / max)
   9. times:   kernel vs plain vs the library call (CUDA events), each
               kernel's bound (bytes over HBM bandwidth or operations over
               the peak rate, whichever is larger), the two IN kernels and
@@ -79,6 +83,7 @@ and the one before that is the ``{"kernels": [...]}`` summary.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -274,7 +279,7 @@ EXP_CONVS = (
 EXP_KERNEL_NAMES = {"conv_proto": "conv_proto_nhwc_kernel",
                     "lowcin_conv_cm": "lowcin_cm_kernel",
                     "lowcin_conv_nhwc": "lowcin_nhwc_kernel",
-                    "dot_probe": "dot_probe_kernel"}
+                    "dot_probe": "dot_probe_cluster_kernel"}
 EXP_BATCH = 24   # the prototypes' batch
 # edge shapes (h, w, cin, cout, k, R), tests/test_torch_kernels.py's
 # PROTO_CASES: k = 7, 5, 3; cin = 3, 5 (the NHWC core's register-staged
@@ -297,8 +302,13 @@ EXP_EDGES = [(16, 20, 3, 8, 7, 8), (16, 20, 3, 8, 7, 16), (24, 30, 5, 6, 5, 8),
 EXP_REFLECT_EDGES = [(2, 2, 5, 8, 3, 2), (3, 3, 8, 64, 5, 3),
                      (4, 4, 3, 80, 7, 4), (4, 4, 32, 3, 7, 2),
                      (2, 2, 64, 16, 3, 1)]
-# K8's edges (mk, nk, kk, steps): both tile orientations, ragged M, N, K
-PROBE_EDGES = [(24, 40, 100, 3), (40, 24, 77, 2)]
+# K8's edges (mk, nk, kk, steps), tests/test_torch_kernels.py's PROBE_CASES
+# below the probes' shapes: ragged M, N and K; kk below one 16-slice per
+# rank (8, 40: the plan shrinks the cluster); kk = 1, 7 and 15 mod 16 (97,
+# 135, 303: the 2-byte loader); one step
+PROBE_EDGES = [(24, 40, 100, 3), (40, 24, 77, 2), (24, 40, 8, 3),
+               (40, 24, 40, 2), (24, 40, 97, 2), (40, 24, 135, 3),
+               (33, 70, 303, 2), (24, 40, 100, 1)]
 STEP_METRIC_RTOL = 2e-3
 STEP_SPECTRAL_ATOL = 1e-5
 STEP_PARAM_SHARE = 0.05
@@ -1575,7 +1585,7 @@ def phase_experiments(card: str) -> dict:
             total = add_times(total, t)
             del x, w, xp, wl
         times[name] = {**total, **sum_bounds(work, "bf16")}
-    total, work = None, []
+    total, work, probe_times = None, [], []
     for label, mk, nk, kk, steps in dw_dot_probe.SHAPES:
         p = torch.ones((mk, kk), dtype=b16, device=DEV)
         g = torch.ones((nk, kk), dtype=b16, device=DEV)
@@ -1585,17 +1595,72 @@ def phase_experiments(card: str) -> dict:
             lambda: dw_dot_probe.dot_probe_reference(p, g, steps),
             lambda: [torch.mm(p, gt) for _ in range(steps)], 3,
             EXP_KERNEL_NAMES["dot_probe"])
-        # the wrapper launches nothing but its kernel
-        show(f"dot_probe {label} x{steps}", t, t["device_ms"])
-        total = add_times(total, t)
         work.append((2 * (mk + nk) * kk + 4 * mk * nk,
                      2.0 * mk * nk * kk * steps))
+        pl = dw_dot_probe.plan(mk, nk, kk, b16)
+        smem, fit = dw_dot_probe.resident(pl, kk, b16)
+        require(smem == pl.smem, f"dot_probe {label}: the library's "
+                f"{smem} shared bytes, the plan's {pl.smem}")
+        say(f"plan dot_probe {label}: tile 32x{pl.tn}, cluster {pl.cluster}, "
+            f"K slice {pl.kslice}, {pl.ctas} CTAs of {pl.smem} B, "
+            f"{dw_dot_probe.waves(pl)} wave(s) by count; the card places "
+            f"{fit} clusters of {pl.tiles} at once")
+        # the wrapper launches nothing but its kernel
+        show(f"dot_probe {label} x{steps}", t, t["device_ms"],
+             sum_bounds(work[-1:], "bf16"))
+        total = add_times(total, t)
+        probe_times.append(t)
     times["dot_probe"] = {**total, **sum_bounds(work, "bf16")}
+    probe_device(card, probe_times, times["dot_probe"])
     probe_turns(card)
     return {"launches": launches, "times": times}
 
 
 PROBE_TURNS = 5
+
+
+def probe_device_ms() -> list:
+    """K8's device time per probe: launch_device_ms of 3 calls (None where
+    the profiler kept no record of its launches)."""
+    b16, out = torch.bfloat16, []
+    for _, mk, nk, kk, steps in dw_dot_probe.SHAPES:
+        p = torch.ones((mk, kk), dtype=b16, device=DEV)
+        g = torch.ones((nk, kk), dtype=b16, device=DEV)
+        fn = functools.partial(dw_dot_probe.dot_probe_cuda, p, g, steps)
+        fn()
+        torch.cuda.synchronize()
+        out.append(launch_device_ms(fn, 3, EXP_KERNEL_NAMES["dot_probe"]))
+    return out
+
+
+def probe_device(card: str, probe_times: list, total: dict) -> None:
+    """K8's profiler device time per probe and summed. Late in this run the
+    profiler may keep no record of a probe's launches (ROADMAP R2); a fresh
+    process keeps them, so where one is missing the six are profiled again
+    in a child process (``chip_smoke.py --k8-device``). The sum goes into
+    the kernels line where every probe has one; else it stays not
+    measured."""
+    dev = [t["device_ms"] for t in probe_times]
+    where = "this process"
+    if None in dev:
+        where = (f"a child process for {dev.count(None)} of the six, where "
+                 "this one kept no record")
+        run = subprocess.run([sys.executable, __file__, "--k8-device"],
+                             capture_output=True, text=True, timeout=600)
+        lines = run.stdout.strip().splitlines()
+        child = json.loads(lines[-1]) if run.returncode == 0 and lines else []
+        if len(child) == len(dev):
+            dev = [a if a is not None else b for a, b in zip(dev, child)]
+        else:
+            say(f"profiler: the child process gave no K8 device times "
+                f"(exit {run.returncode}): {run.stderr.strip()[-300:]}")
+    for (label, *_), ms in zip(dw_dot_probe.SHAPES, dev):
+        say(f"time dot_probe {label}: device ms {ms_text(ms)} [{card}]")
+    summed = None if None in dev else sum(dev)
+    total["device_ms"] = summed
+    say(f"time dot_probe over the six probes: events {total['ms']:.4f} ms, "
+        f"device ms {ms_text(summed)} (from {where}), bound "
+        f"{total['bound_ms']:.4f} ms [{card}]")
 
 
 def probe_turns(card: str) -> None:
@@ -1712,6 +1777,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--k8-device"]:  # probe_device's child process
+        kernels.load()
+        print(json.dumps(probe_device_ms()), flush=True)
+        sys.exit(0)
     try:
         main()
     except Exception as exc:  # report and exit non-zero without the result

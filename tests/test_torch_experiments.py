@@ -329,6 +329,13 @@ def test_entry_point_defaults_to_the_card(name, monkeypatch):
         MAINS[name][0]([])
 
 
+def test_probe_sweep_needs_the_card():
+    """``--sweep`` times launch plans; off the card it raises rather than
+    time the plain version."""
+    with pytest.raises(RuntimeError, match="CUDA device only"):
+        dw_dot_probe.main(["--device", "cpu", "--sweep"])
+
+
 def test_importing_the_probe_runs_nothing(capsys):
     importlib.reload(dw_dot_probe)
     assert capsys.readouterr().out == ""

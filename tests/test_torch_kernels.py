@@ -556,16 +556,25 @@ def test_conv_prototype_kernels_refuse_what_they_do_not_take(cuda, name):
         kernel(x, wgt.requires_grad_(), 8)
 
 
-# (mk, nk, kk, steps): the two tile orientations, ragged M, N and K
-PROBE_CASES = [(24, 40, 100, 3), (40, 24, 77, 2), (24, 448, 4198, 2)]
+# (mk, nk, kk, steps): ragged M, N and K; kk below one 16-slice per rank
+# (8, 40: the plan shrinks the cluster); kk = 1, 7 and 15 mod 16 (97, 135,
+# 303; odd kk takes the 2-byte loader); one step; the six probes' shapes
+# (dw_dot_probe.SHAPES; the two wide ones are one shape) at two steps, and
+# one of them at its 384 steps
+PROBE_CASES = [(24, 40, 100, 3), (40, 24, 77, 2), (24, 40, 8, 3),
+               (40, 24, 40, 2), (24, 40, 97, 2), (40, 24, 135, 3),
+               (33, 70, 303, 2), (24, 40, 100, 1), (24, 448, 4198, 2),
+               (448, 24, 4198, 2), (64, 152, 5764, 2), (96, 192, 8226, 2),
+               (32, 576, 9252, 2), (24, 448, 4198, 384)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("mk,nk,kk,steps", PROBE_CASES)
 def test_dot_probe_kernel_matches_plain(cuda, mk, nk, kk, steps, dtype):
-    """K8: exact on all-ones operands (every sum an integer below 2^24);
-    within rtol 1e-5 on random ones, with an atol of 1e-5 of the largest
-    element for the sums near zero; bit for bit on a second launch."""
+    """K8 (a cluster per output tile, dw_dot_probe.plan's): exact on
+    all-ones operands (every sum an integer below 2^24); within rtol 1e-5 on
+    random ones, with an atol of 1e-5 of the largest element for the sums
+    near zero; bit for bit on a second launch."""
     p = torch.ones((mk, kk), dtype=dtype, device=cuda)
     g = torch.ones((nk, kk), dtype=dtype, device=cuda)
     got = dw_dot_probe.dot_probe_cuda(p, g, steps)
@@ -581,9 +590,43 @@ def test_dot_probe_kernel_matches_plain(cuda, mk, nk, kk, steps, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_dot_probe_kernel_takes_every_plan(cuda, dtype):
+    """K8 under every launch dw_dot_probe.candidates gives with clusters of 1
+    to 16 (tiles 16, 32 and 64 wide, clusters the plan never picks): exact
+    on ones, within rtol 1e-5 on random operands."""
+    mk, nk, kk, steps = 40, 70, 1000, 2
+    ones = (torch.ones((mk, kk), dtype=dtype, device=cuda),
+            torch.ones((nk, kk), dtype=dtype, device=cuda))
+    p = _randn((mk, kk), 38, cuda, dtype)
+    g = _randn((nk, kk), 39, cuda, dtype)
+    want = dw_dot_probe.dot_probe_reference(p, g, steps)
+    plans = dw_dot_probe.candidates(mk, nk, kk, dtype, range(1, 17))
+    assert {pl.tn for pl in plans} == set(dw_dot_probe.TILE_NS)
+    for pl in plans:
+        got = dw_dot_probe.launch_plan(*ones, steps, pl)
+        assert torch.equal(got, torch.full_like(got, steps * kk)), pl
+        torch.testing.assert_close(
+            dw_dot_probe.launch_plan(p, g, steps, pl), want, rtol=1e-5,
+            atol=1e-5 * float(want.abs().max()), msg=str(pl))
+
+
+def test_dot_probe_sweep_times_every_plan(cuda):
+    """The entry point's --sweep on a small probe: one row per candidate
+    plan, each exact on ones and timed, the plan's own marked."""
+    shape = [("small", 24, 40, 100, 2)]
+    rows = dw_dot_probe.sweep(cuda, shape)
+    assert len(rows) == len(dw_dot_probe.candidates(24, 40, 100,
+                                                    torch.bfloat16,
+                                                    range(1, 17)))
+    assert all(r["exact"] and r["ms"] > 0 and r["resident"] >= 1
+               for r in rows)
+    assert sum(r["planned"] for r in rows) == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_dot_probe_kernel_takes_unaligned_views(cuda, dtype):
     """Views one element into their storage (and an odd kk) are not 4-byte
-    aligned: K8 takes its two-load path there, and agrees."""
+    aligned: K8 loads them two bytes at a time, and agrees."""
     p = _randn((24 * 101 + 1,), 36, cuda, dtype)[1:].view(24, 101)
     g = _randn((40 * 101 + 1,), 37, cuda, dtype)[1:].view(40, 101)
     got = dw_dot_probe.dot_probe_cuda(p, g, 2)

@@ -1,7 +1,7 @@
 // The asynchronous copies and matrix loads the tensor-core kernels share
-// (starved_dw.cu, and the NHWC conv core nhwc_conv.cuh): cp.async of 16
-// bytes from device to shared memory in commit groups, ldmatrix of four
-// 8 x 8 bf16 matrices, and stmatrix of four, transposed.
+// (starved_dw.cu, dot_probe.cu and the NHWC conv core nhwc_conv.cuh):
+// cp.async of 16 bytes from device to shared memory in commit groups,
+// ldmatrix of four 8 x 8 bf16 matrices, and stmatrix of four, transposed.
 #pragma once
 
 #include <stdint.h>

@@ -19,12 +19,15 @@ def rup(a: int, m: int) -> int:
 
 
 def parse_args(argv: Optional[List[str]], description: str,
-               batch: int = 24) -> argparse.Namespace:
+               batch: int = 24, flags=()) -> argparse.Namespace:
+    """--batch, --device and the on/off `flags` of one entry point."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--batch", type=int, default=batch)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels; the default) or cpu (the plain "
                          "versions, for tests)")
+    for flag in flags:
+        ap.add_argument(flag, action="store_true")
     return ap.parse_args(argv)
 
 

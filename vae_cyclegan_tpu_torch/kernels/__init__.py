@@ -63,8 +63,11 @@ _SIGNATURES = {
     "vct_lowcin_nhwc": (_I, [_P] * 3 + [_I] * 8 + [_P]),
     # (xp, wk, y, n, h, w, cin, cout, k, wp, fold, dtype, stream), K6
     "vct_lowcin_conv": (_I, [_P] * 3 + [_I] * 9 + [_P]),
-    # (p, g, out, mk, nk, kk, steps, dtype, stream)
-    "vct_dot_probe": (_I, [_P] * 3 + [_I] * 5 + [_P]),
+    # (p, g, out, mk, nk, kk, steps, dtype, tn, cluster, kslice, stream), K8
+    "vct_dot_probe": (_I, [_P] * 3 + [_I] * 8 + [_P]),
+    # (kk, dtype, tn, cluster, kslice, long long[2] out) -> 0: K8's shared
+    # bytes a CTA and the clusters the card places at once
+    "vct_dot_probe_query": (_I, [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()
