@@ -73,6 +73,20 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               and per training step each hand kernel's device time (a
               kernel that launched must show in a profile that saw the
               device), with the IN kernels' byte bound per step
+ 10. data and engine: a synthetic Hypersim tree of 768x1024 frames and its
+              decoded-image cache (whether the native C++ data plane built,
+              and why not); Engine.train_epoch of the unpaired bf16
+              cyclevaegan task at batch 4 over three loader batches on the
+              uint8 wire (host crops) and on the raw wire (device_aug on the
+              card), each epoch's launches the unpaired step's times the
+              batches, its metrics finite, no skipped update, then
+              validate; device_augment on the card against the port's CPU
+              device_augment on a raw batch; and ``python -m
+              vae_cyclegan_tpu_torch.bench`` at its defaults in a child
+              process: no error key, a positive step and e2e rate over an
+              epoch of several batches, the unpaired step's launches per
+              step; its JSON line and the
+              phase's wall time
 
 Each main path (the serving requests, each training run) is driven with
 every launch count set to 0 just before it and read just after it. Any
@@ -85,8 +99,10 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -94,8 +110,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vae_cyclegan_tpu_torch import kernels
+from vae_cyclegan_tpu_torch import bench, kernels
 from vae_cyclegan_tpu_torch.config import ModelConfig
+from vae_cyclegan_tpu_torch.data import (
+    AugmentConfig,
+    DataLoader,
+    DecodedImageCache,
+    HypersimDataset,
+    native,
+)
+from vae_cyclegan_tpu_torch.data import datasets as data_datasets
+from vae_cyclegan_tpu_torch.data.device_aug import device_augment
+from vae_cyclegan_tpu_torch.engine import Engine
 from vae_cyclegan_tpu_torch.experiments import (
     conv_proto,
     dw_dot_probe,
@@ -310,6 +336,16 @@ PROBE_EDGES = [(24, 40, 100, 3), (40, 24, 77, 2), (24, 40, 8, 3),
                (40, 24, 40, 2), (24, 40, 97, 2), (40, 24, 135, 3),
                (33, 70, 303, 2), (24, 40, 100, 1)]
 STEP_METRIC_RTOL = 2e-3
+# the data and engine phase: loader batches per epoch (at PATH_BATCH), the
+# unpaired cyclevaegan step's launches in WRAPPERS order (bench.py's step;
+# tests/test_torch_bench.py holds bench.UNPAIRED_STEP_LAUNCHES to its kernel
+# sites), device_augment on the card against the CPU's (f32 products in
+# another order: allclose atol), and the bench child's time limit
+DATA_BATCHES = 3
+UNPAIRED_STEP_LAUNCHES = tuple(bench.UNPAIRED_STEP_LAUNCHES.get(n, 0)
+                               for n in KERNEL_NAMES)
+AUG_TOL = (1e-4, 0.0)
+BENCH_TIMEOUT = 600
 STEP_SPECTRAL_ATOL = 1e-5
 STEP_PARAM_SHARE = 0.05
 
@@ -1695,6 +1731,141 @@ def probe_turns(card: str) -> None:
             f"{max(ms):.4f} ms of {len(ms)} turns ({each}) [{card}]")
 
 
+def _epoch_on_the_card(engine: Engine, root: Path, raw: bool) -> None:
+    """One Engine.train_epoch over DATA_BATCHES loader batches (the main
+    path: launch counts set to 0 just before it, read just after), then
+    validate over the same loader."""
+    label = "raw wire (device_aug)" if raw else "uint8 wire (host crops)"
+    ds = HypersimDataset(str(root), ["depth", "normal"],
+                         augment=AugmentConfig(out_size=IMAGE, hflip_p=0.5,
+                                               vflip_p=0.3),
+                         paired_mode=False, uint8_output=True, raw_mode=raw)
+    loader = DataLoader(ds, PATH_BATCH, shuffle=True, seed=0, num_workers=4,
+                        drop_last=True)
+    try:
+        n = len(loader)
+        require(n == DATA_BATCHES, f"{label}: {n} batches")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _zero_counts()
+        loss, avg, last = engine.train_epoch(loader, progress=False)
+        counts = _counts()
+        seconds = time.perf_counter() - t0
+        _no_experiment_launches(label)
+        want = tuple(c * n for c in UNPAIRED_STEP_LAUNCHES)
+        require(counts == want, f"engine {label}: {counts} launches of "
+                                f"{KERNEL_NAMES}, expected {want}")
+        require(all(np.isfinite(v) for v in avg.values()),
+                f"engine {label}: metrics {avg}")
+        require(avg["nan_detected"] == 0.0, f"engine {label}: skipped update")
+        wire = {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+                for k, v in last.items()}
+        say(f"engine {label}: train_epoch of {n} batches of {PATH_BATCH} in "
+            f"{seconds:.2f} s (first steps included), G_loss {loss:.4f}, "
+            f"D_loss {avg['D_loss']:.4f}, nan_detected 0, launches {counts} "
+            f"ok; the last batch on the card: {wire}")
+        vloss, vavg, gx, fy, x, y = engine.validate(loader, progress=False)
+        require(np.isfinite(vloss) and all(np.isfinite(v)
+                                           for v in vavg.values()),
+                f"engine {label} validate: {vavg}")
+        for name, img in (("Gx", gx), ("Fy", fy)):
+            require(img.shape == (PATH_BATCH, IMAGE, IMAGE, 3)
+                    and np.isfinite(img).all(),
+                    f"engine {label} validate {name} {img.shape}")
+        require((x is None) == raw, f"engine {label} validate: input images")
+        say(f"engine {label}: validate G_loss {vloss:.4f}; Gx, Fy "
+            f"{(PATH_BATCH, IMAGE, IMAGE, 3)} finite")
+    finally:
+        loader.close()
+
+
+def _augment_on_the_card(root: Path) -> None:
+    """device_augment of one raw loader batch on the card against the port's
+    CPU device_augment on the same frames and aug vectors."""
+    ds = HypersimDataset(str(root), ["depth", "normal"],
+                         augment=AugmentConfig(out_size=IMAGE, hflip_p=0.5,
+                                               vflip_p=0.3),
+                         paired_mode=False, raw_mode=True)
+    loader = DataLoader(ds, PATH_BATCH, shuffle=True, seed=1, drop_last=True)
+    try:
+        batch = next(iter(loader))
+    finally:
+        loader.close()
+    for key in ("x", "y"):
+        raw = torch.from_numpy(batch[f"{key}_raw"])
+        aug = torch.from_numpy(batch[f"{key}_aug"])
+        want = device_augment(raw, aug, IMAGE)
+        got = device_augment(raw.to(DEV), aug.to(DEV), IMAGE)
+        compare(f"device_augment {key} {tuple(raw.shape)} -> "
+                f"{tuple(want.shape)} (card vs CPU)", got.cpu(), want,
+                tol=AUG_TOL)
+
+
+def _bench_child(card: str) -> dict:
+    """``python -m vae_cyclegan_tpu_torch.bench`` at its defaults in a child
+    process; its JSON line, held to: no error key, a positive step and e2e
+    rate, an e2e epoch of several batches, the unpaired step's launches per
+    step."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "vae_cyclegan_tpu_torch.bench"],
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT, env=env,
+        cwd=str(Path(__file__).resolve().parent))
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "bench.log").write_text(proc.stdout + proc.stderr)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    require(proc.returncode == 0 and lines,
+            f"bench exited {proc.returncode}: "
+            f"{(lines or [proc.stderr[-500:]])[-1]}")
+    out = json.loads(lines[-1])
+    say(f"bench: {json.dumps(out)}")
+    errors = [k for k in out if k.endswith("_error")]
+    require(not errors, f"bench errors: {[(k, out[k]) for k in errors]}")
+    require(out["value"] > 0, f"bench value {out['value']}")
+    require(out["e2e_loader_images_per_sec"] > 0,
+            f"bench e2e {out['e2e_loader_images_per_sec']}")
+    require(out["e2e_batches_per_epoch"] >= 2,
+            f"bench e2e epoch of {out['e2e_batches_per_epoch']} batches")
+    require(out["launches_per_step"] == bench.UNPAIRED_STEP_LAUNCHES,
+            f"bench launches_per_step {out['launches_per_step']}, expected "
+            f"{bench.UNPAIRED_STEP_LAUNCHES}")
+    require(out["device"] == card, f"bench device {out['device']}")
+    return out
+
+
+def phase_data_engine(card: str) -> None:
+    """The path users train through: a synthetic tree and its decoded-image
+    cache, the loader, the copy to the card, on-card augmentation and the
+    step inside Engine.train_epoch, on both wires; device_augment held to
+    its CPU result; then the port's bench at its defaults."""
+    t0 = time.perf_counter()
+    say(f"data: native data plane {native.status()}")
+    with tempfile.TemporaryDirectory() as td:
+        bench._synthetic_hypersim_tree(td, PATH_BATCH * DATA_BATCHES)
+        root = Path(td) / "hypersim"
+        cache = DecodedImageCache(
+            DecodedImageCache.build(root, Path(td) / "img.cache")).attach()
+        say(f"data: synthetic tree and cache of {len(cache)} frames "
+            f"(768x1024) in {time.perf_counter() - t0:.1f} s")
+        try:
+            task = create_task("cyclevaegan", model=ModelConfig(
+                IMAGE, LATENT, BASE, torch.bfloat16), paired=False,
+                device=DEV)
+            task.init(0)
+            engine = Engine(task, seed=0)
+            for raw in (False, True):
+                _epoch_on_the_card(engine, root, raw)
+            del engine, task
+            _augment_on_the_card(root)
+        finally:
+            data_datasets.set_decode_cache(None)
+    torch.cuda.empty_cache()
+    tb = time.perf_counter()
+    _bench_child(card)
+    say(f"data and engine phase: {time.perf_counter() - t0:.1f} s (the "
+        f"bench child {time.perf_counter() - tb:.1f} s) [{card}]")
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
@@ -1718,6 +1889,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     errs.update(phase_experiment_kernels())
     exp = phase_experiments(card)
+    torch.cuda.empty_cache()
+    phase_data_engine(card)
     conv_src = "vae_cyclegan_tpu_torch/csrc/starved_conv.cu"
     sources = {"conv_proto": "vae_cyclegan_tpu_torch/csrc/conv_proto.cu",
                "lowcin_conv_cm": "vae_cyclegan_tpu_torch/csrc/lowcin_conv.cu",

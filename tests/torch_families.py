@@ -316,12 +316,12 @@ def jax_kernel_sites(monkeypatch, jtask, batch_size, fn="train_step",
 
 
 def port_train_sites(monkeypatch, name, batch_size, instance_norm="auto",
-                     fn="train_step"):
+                     fn="train_step", paired=True):
     """The port's kernel sites for one `fn` of the full-width bf16 task on
     the meta device."""
     task = create_task(name, model=ModelConfig(
         256, 64, 64, torch.bfloat16, instance_norm=instance_norm),
-        device="meta")
+        paired=paired, device="meta")
     # no values on the meta device: the finiteness check passes the step
     monkeypatch.setattr(Task, "_finite_update",
                         staticmethod(lambda opt, loss, params, grads: 0.0))
