@@ -87,6 +87,26 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               epoch of several batches, the unpaired step's launches per
               step; its JSON line and the
               phase's wall time
+ 11. drivers: the port's entry points in process on a synthetic tree of
+              768x1024 frames and its decoded-image cache (built by
+              ``data.tools cache``): ``train`` (full-width bf16
+              cyclevaegan, unpaired, batch 4, 2 epochs of 3 batches, one
+              validation batch, a checkpoint each epoch), each training
+              epoch the unpaired step's launches times its steps and no
+              prototype kernel; the run directory and train.py's
+              TensorBoard tags; checkpoint_epoch_2 loaded into a fresh task
+              and engine on the card bit for bit (weights, both Adam states,
+              the generator), its save and load times; a NaN batch skipped
+              with one dump of the expected keys; ``--resume`` from
+              checkpoint_epoch_1 (epoch 2, Adam's step carried on, the
+              TensorBoard events past epoch 1 truncated); doubleae then
+              cycleae ``--pretrained_doubleae`` (G's and F's encoders the
+              Double encoder's before the first step, no shared storage);
+              ``test`` over the run (summary.json's metrics finite; the
+              figures where the machine has matplotlib); InceptionV3 on
+              the card against the CPU and fid_score; images/s of the
+              training epochs and of ``test`` (logs in
+              chiprun_out/drivers.log)
 
 Each main path (the serving requests, each training run) is driven with
 every launch count set to 0 just before it and read just after it. Any
@@ -111,6 +131,8 @@ import torch
 import torch.nn.functional as F
 
 from vae_cyclegan_tpu_torch import bench, kernels
+from vae_cyclegan_tpu_torch import test as test_driver
+from vae_cyclegan_tpu_torch import train as train_driver
 from vae_cyclegan_tpu_torch.config import ModelConfig
 from vae_cyclegan_tpu_torch.data import (
     AugmentConfig,
@@ -120,6 +142,7 @@ from vae_cyclegan_tpu_torch.data import (
     native,
 )
 from vae_cyclegan_tpu_torch.data import datasets as data_datasets
+from vae_cyclegan_tpu_torch.data import tools as data_tools
 from vae_cyclegan_tpu_torch.data.device_aug import device_augment
 from vae_cyclegan_tpu_torch.engine import Engine
 from vae_cyclegan_tpu_torch.experiments import (
@@ -154,6 +177,12 @@ from vae_cyclegan_tpu_torch.ops.starved_conv import (
     starved_reflect_conv,
     zero_conv,
     zero_conv_cuda,
+)
+from vae_cyclegan_tpu_torch.utils import (
+    fid,
+    load_checkpoint,
+    nan_dump,
+    save_checkpoint,
 )
 
 OUT_DIR = Path("chiprun_out")
@@ -1866,6 +1895,427 @@ def phase_data_engine(card: str) -> None:
         f"bench child {time.perf_counter() - tb:.1f} s) [{card}]")
 
 
+# phase 11: the drivers. The training run's tree: DRIVER_FRAMES 768x1024
+# frames, split 0.75 / 0.25 (3 training batches of 4, 1 validation batch);
+# the transfer runs split it 0.5 / 0.5 (2 training batches)
+DRIVER_FRAMES = 16
+# the port's InceptionV3 on the card (f32, TF32 off) against the same module
+# on the CPU: |card - CPU| <= FID_TOL x the largest feature
+FID_TOL = 1e-4
+
+
+class _EpochProbe:
+    """A thin wrapper the phase puts around Engine.train_epoch (the drivers'
+    main path) and Engine.validate: each training epoch runs with every
+    launch count set to 0 just before it and read just after, its steps
+    counted; ``before`` (if set) sees the engine before the first step."""
+
+    def __init__(self):
+        self.epochs, self.valid = [], []
+        self.before = None
+        self._train, self._validate = Engine.train_epoch, Engine.validate
+        self._step = Engine.train_step
+
+    def __enter__(self):
+        probe = self
+
+        def train_step(engine, *a, **kw):
+            probe.steps += 1
+            return probe._step(engine, *a, **kw)
+
+        def train_epoch(engine, loader, *a, **kw):
+            if probe.before is not None:
+                probe.before(engine)
+                probe.before = None
+            probe.steps = 0
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            out = probe._train(engine, loader, *a, **kw)
+            torch.cuda.synchronize()
+            probe.epochs.append({
+                "task": engine.task.name, "epoch": kw.get("epoch"),
+                "steps": probe.steps, "counts": _counts(),
+                "stray": {n: fn.launches for n, fn in zip(EXP_NAMES,
+                                                         EXP_WRAPPERS)
+                          if fn.launches},
+                "seconds": time.perf_counter() - t0, "avg": out[1]})
+            return out
+
+        def validate(engine, *a, **kw):
+            out = probe._validate(engine, *a, **kw)
+            probe.valid.append(out[1])
+            return out
+
+        Engine.train_step, Engine.train_epoch = train_step, train_epoch
+        Engine.validate = validate
+        return self
+
+    def __exit__(self, *exc):
+        Engine.train_step, Engine.train_epoch = self._step, self._train
+        Engine.validate = self._validate
+
+
+def _driver(module, argv, log: Path):
+    """``module.main(module.build_parser().parse_args(argv))`` in this
+    process, its console output appended to `log`."""
+    import contextlib
+
+    with open(log, "a") as f, contextlib.redirect_stdout(f):
+        print(f"$ python -m {module.__name__} {' '.join(argv)}", flush=True)
+        return module.main(module.build_parser().parse_args(argv))
+
+
+def _check_epochs(probe: _EpochProbe, label: str, want_steps: int,
+                  launches: tuple) -> list:
+    """Each training epoch of the run: `want_steps` steps, `launches` per
+    step (WRAPPERS order), no prototype kernel, metrics finite, no skipped
+    update."""
+    epochs, probe.epochs = probe.epochs, []
+    require(epochs, f"{label}: no training epoch ran")
+    for ep in epochs:
+        want = tuple(c * ep["steps"] for c in launches)
+        require(ep["steps"] == want_steps,
+                f"{label} epoch {ep['epoch']}: {ep['steps']} steps")
+        require(ep["counts"] == want,
+                f"{label} epoch {ep['epoch']}: {ep['counts']} launches of "
+                f"{KERNEL_NAMES}, expected {want}")
+        require(not ep["stray"], f"{label}: prototype kernels {ep['stray']}")
+        require(all(np.isfinite(v) for v in ep["avg"].values()),
+                f"{label} epoch {ep['epoch']}: metrics {ep['avg']}")
+        require(ep["avg"]["nan_detected"] == 0.0,
+                f"{label} epoch {ep['epoch']}: skipped update")
+    return epochs
+
+
+def _tb_tags(run_dir: Path):
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator,
+    )
+
+    ea = EventAccumulator(str(run_dir / "tensorboard"),
+                          size_guidance={"scalars": 0, "images": 0})
+    ea.Reload()
+    return ({t: [e.step for e in ea.Scalars(t)]
+             for t in ea.Tags()["scalars"]},
+            {t: [e.step for e in ea.Images(t)] for t in ea.Tags()["images"]})
+
+
+def _same_state(label: str, task, engine, path: Path) -> None:
+    """The task's state_dict, both Adam states (step included) and the
+    engine's generator, bit for bit the checkpoint file's."""
+    saved = torch.load(path / "state.pth", map_location="cpu",
+                       weights_only=True)
+    sd = task.state_dict()
+    require(sd.keys() == saved["model_state_dict"].keys(), f"{label}: keys")
+    for k, v in saved["model_state_dict"].items():
+        require(torch.equal(sd[k].cpu(), v), f"{label}: {k}")
+    for key, opt in task.optimizers().items():
+        got, want = opt.state_dict(), saved["optimizer_states"][key]
+        require(got["param_groups"] == want["param_groups"],
+                f"{label}: {key} param_groups")
+        require(got["state"].keys() == want["state"].keys() and got["state"],
+                f"{label}: {key} state")
+        for i, st in want["state"].items():
+            for name, v in st.items():
+                require(torch.equal(got["state"][i][name].cpu(), v),
+                        f"{label}: {key} state {i} {name}")
+    require(torch.equal(engine.generator.get_state(),
+                        saved["generator_state"]), f"{label}: generator")
+
+
+def _adam_step(path: Path) -> int:
+    saved = torch.load(path / "state.pth", map_location="cpu",
+                       weights_only=True)
+    steps = {int(st["step"]) for osd in saved["optimizer_states"].values()
+             for st in osd["state"].values()}
+    require(len(steps) == 1, f"{path.name}: Adam steps {steps}")
+    return steps.pop()
+
+
+def _seeded_inception_state() -> dict:
+    """A torchvision-layout inception_v3 state_dict from a seed: He-scaled
+    conv weights, BatchNorm near identity (no weights are bundled)."""
+    rng = np.random.RandomState(0)
+    sd = {}
+    for k, v in fid.InceptionV3().state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("conv.weight"):
+            a = rng.randn(*shape) * np.sqrt(2.0 / np.prod(shape[1:]))
+        elif k.endswith("bn.weight"):
+            a = 1.0 + 0.1 * rng.randn(*shape)
+        elif k.endswith(("bn.bias", "running_mean")):
+            a = 0.1 * rng.randn(*shape)
+        elif k.endswith("running_var"):
+            a = rng.uniform(0.5, 1.5, shape)
+        else:
+            continue
+        sd[k] = a.astype(np.float32)
+    return sd
+
+
+def _phase_fid(card: str, td: Path) -> None:
+    """The port's InceptionV3 features on the card (f32, TF32 off) against
+    the same module on the CPU at batch 4 of 256x256 inputs; fid_score of
+    two small image sets on the card."""
+    np.savez(td / "inception.npz", **_seeded_inception_state())
+    gpu = fid.load_torch_inception(str(td / "inception.npz"), DEV)
+    cpu = fid.load_torch_inception(str(td / "inception.npz"), "cpu")
+    x = _images(PATH_BATCH, 21)
+    feats = fid.make_feature_fn(gpu)
+    want = fid.make_feature_fn(cpu)(x)
+    got = feats(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = feats(x)
+    ms = 1000 * (time.perf_counter() - t0)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    require(got.shape == want.shape == (PATH_BATCH, 2048) and scale > 0
+            and np.isfinite(got).all(), f"fid features {got.shape}")
+    require(err <= FID_TOL * scale, f"fid features: max_abs_err {err:.3e} "
+                                    f"of {scale:.3e}")
+    say(f"check fid InceptionV3 features {got.shape} (card f32 vs CPU, "
+        f"256x256 resized to 299): max_abs_err={err:.3e} = "
+        f"{err / scale:.2e} of the largest feature {scale:.3e} (tol "
+        f"{FID_TOL:g} of it) ok; {ms:.1f} ms a batch of {PATH_BATCH} on the "
+        f"card [{card}]")
+    a = [img for img in _images(6, 22)]
+    b = [np.clip(img * 0.5 + 0.3, 0, 1) for img in _images(6, 23)]
+    same, diff = fid.fid_score(a, a, feats, 4), fid.fid_score(a, b, feats, 4)
+    require(np.isfinite(same) and np.isfinite(diff) and diff > abs(same),
+            f"fid_score same {same} vs different {diff}")
+    say(f"fid_score on the card: 6 images against themselves {same:.4e}, "
+        f"against 6 others {diff:.4f} ok")
+
+
+def _phase_test_driver(card: str, runs: Path, data: Path, out: Path,
+                       log: Path) -> None:
+    """python -m vae_cyclegan_tpu_torch.test over the run: summary.json
+    with finite l1/psnr/ssim_to_target. Where the machine has no
+    matplotlib, the metrics are computed by test.group_metrics and the
+    figures are not drawn."""
+    import importlib.util
+
+    t0 = time.perf_counter()
+    if importlib.util.find_spec("matplotlib") is not None:
+        _driver(test_driver, ["--runs_dir", str(runs), "--data_dir",
+                              str(data), "--output_dir", str(out),
+                              "--num_samples", str(PATH_BATCH)], log)
+        seconds = time.perf_counter() - t0
+        group = out / "hypersim" / "depth_to_normal"
+        summary = json.loads((group / "summary.json").read_text())
+        figures = sorted(p.name for p in group.glob("*.png"))
+        require(len(figures) == PATH_BATCH + 1, f"test figures {figures}")
+        what = f"summary.json and {len(figures)} figures"
+    else:
+        (run,) = test_driver.discover_runs(str(runs))
+        models = {run["name"]: test_driver.load_model_for_inference(run)}
+        loader = test_driver.build_test_loader(
+            run["args"], str(data), max_samples=PATH_BATCH)
+        try:
+            summary = test_driver.group_metrics(models, loader)
+        finally:
+            loader.close()
+        seconds = time.perf_counter() - t0
+        what = "the metrics; figures not drawn (no matplotlib here)"
+    require(summary["num_samples"] == PATH_BATCH,
+            f"test samples {summary['num_samples']}")
+    vals = {k: list(summary[k].values()) for k in (
+        "l1_to_target", "psnr_to_target", "ssim_to_target")}
+    require(all(len(v) == 1 and np.isfinite(v[0]) for v in vals.values()),
+            f"test metrics {vals}")
+    say(f"test driver: {what}; l1 {vals['l1_to_target'][0]:.4f}, psnr "
+        f"{vals['psnr_to_target'][0]:.2f} dB, ssim "
+        f"{vals['ssim_to_target'][0]:.4f} over {PATH_BATCH} samples in "
+        f"{seconds:.2f} s (model load included): "
+        f"{PATH_BATCH / seconds:.2f} images/s [{card}]")
+
+
+def _phase_nan_dump(task, td: Path) -> None:
+    """One NaN batch through the full-width task's train_step with dumping
+    on: the update is skipped, one .npz is written with the loss, the batch
+    and the skipped optimizer's parameters and gradients by name."""
+    names = {id(p): n for n, p in task.nets.named_parameters()}
+    before = {n: p.detach().clone() for n, p in task.nets.named_parameters()}
+    batch = {"x": _images(PATH_BATCH, 31), "y": _images(PATH_BATCH, 32)}
+    batch["x"][0, 5, 7, 1] = np.nan
+    nan_dump.enable(td / "nan_run", max_dumps=1)
+    try:
+        m = task.train_step(batch)
+    finally:
+        nan_dump.disable()
+    require(float(m["nan_detected"]) == 1.0, "nan step: not skipped")
+    for n, p in task.nets.named_parameters():
+        require(torch.equal(p, before[n]), f"nan step moved {n}")
+    dumps = sorted((td / "nan_run" / "nan_dumps").glob("*.npz"))
+    require(len(dumps) == 1, f"nan dumps {dumps}")
+    dump = np.load(dumps[0])
+    gen = [names[id(p)] for p in task.gen_params]
+    want = ({"loss", "batch.x", "batch.y"} | {f"params.{n}" for n in gen}
+            | {f"grads.{n}" for n in gen})
+    require(set(dump.files) == want, f"nan dump keys {sorted(dump.files)[:5]}")
+    require(not np.isfinite(dump["loss"]), f"nan dump loss {dump['loss']}")
+    say(f"nan dump: the NaN batch's update skipped (parameters unmoved), "
+        f"{dumps[0].name} with the loss, the batch and {len(gen)} parameters "
+        f"and gradients of G and F ok")
+
+
+def phase_drivers(card: str) -> None:
+    """The port's entry points in process: python -m
+    vae_cyclegan_tpu_torch.train (full-width bf16 cyclevaegan, unpaired,
+    over a decoded-image cache that data.tools built) with the checkpoint,
+    resume, transfer and NaN-dump checks, then .test over the run, then
+    FID."""
+    t0 = time.perf_counter()
+    OUT_DIR.mkdir(exist_ok=True)
+    log = OUT_DIR / "drivers.log"
+    log.write_text("")
+    want_launches = UNPAIRED_STEP_LAUNCHES
+    with tempfile.TemporaryDirectory() as tmp, _EpochProbe() as probe:
+        td = Path(tmp)
+        bench._synthetic_hypersim_tree(td, DRIVER_FRAMES)
+        require(data_tools.main(["cache", "--root", str(td / "hypersim"),
+                                 "--out", str(td / "img.cache")]) == 0,
+                "data.tools cache")
+        common = ["--data_dir", str(td), "--image_size", str(IMAGE),
+                  "--base_width", str(BASE), "--latent_dim", str(LATENT),
+                  "--precision", "bf16", "--batch_size", str(PATH_BATCH),
+                  "--save_freq", "1", "--log_image_freq", "1",
+                  "--num_workers", "2", "--quiet", "--decode_cache",
+                  str(td / "img.cache")]
+        runs = td / "runs"
+        argv = ["--architecture", "cyclevaegan", "--epochs", "2",
+                "--test_split", "0.25", "--output_dir", str(runs), *common]
+        try:
+            run = _driver(train_driver, argv, log)
+        finally:
+            data_datasets.set_decode_cache(None)
+        epochs = _check_epochs(probe, "train cyclevaegan", 3, want_launches)
+        require([ep["epoch"] for ep in epochs] == [0, 1],
+                f"train epochs {[ep['epoch'] for ep in epochs]}")
+        for ep in epochs:
+            say(f"train driver epoch {ep['epoch'] + 1}: {ep['steps']} steps "
+                f"at batch {PATH_BATCH}, launches {ep['counts']} = "
+                f"{want_launches} a step ok; "
+                f"{ep['avg']['images_per_sec']:.2f} images/s "
+                f"(Engine.train_epoch), {ep['seconds']:.2f} s [{card}]")
+        entries = sorted(p.name for p in run.iterdir())
+        require(entries == ["args.json", "best_model", "checkpoint_epoch_1",
+                            "checkpoint_epoch_2", "tensorboard"],
+                f"run directory {entries}")
+        scalars, images = _tb_tags(run)
+        train_keys = {k for k, v in epochs[0]["avg"].items()
+                      if not (k == "nan_detected" and v == 0.0)}
+        want_scalars = ({"Loss/train", "Loss/test"}
+                        | {f"Loss_Components_train/{k}" for k in train_keys}
+                        | {f"Loss_Components_test/{k}" for k in probe.valid[0]})
+        require(set(scalars) == want_scalars,
+                f"TB scalars {sorted(set(scalars) ^ want_scalars)}")
+        require(all(steps == [0, 1] for steps in scalars.values()),
+                f"TB steps {scalars}")
+        require(set(images) == {"depth/test_x", "normal/test_y",
+                                "normal/test_Gx", "depth/test_Fy"},
+                f"TB images {sorted(images)}")
+        say(f"train driver: run directory {entries}, {len(scalars)} scalar "
+            f"and {len(images)} image tags of train.py's schema ok")
+
+        # the checkpoint on the card: load into a fresh task and engine
+        task = create_task("cyclevaegan", model=ModelConfig(
+            IMAGE, LATENT, BASE, torch.bfloat16), paired=False, device=DEV)
+        task.init(99)
+        engine = Engine(task, seed=99)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        load_checkpoint(task, run / "checkpoint_epoch_2", engine)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        _same_state("checkpoint_epoch_2 on the card", task, engine,
+                    run / "checkpoint_epoch_2")
+        t1 = time.perf_counter()
+        save_checkpoint(task, 1, 0.0, {}, td / "saved", engine)
+        save_s = time.perf_counter() - t1
+        _same_state("saved again", task, engine, td / "saved")
+        size = (td / "saved" / "state.pth").stat().st_size
+        say(f"checkpoint: checkpoint_epoch_2 into a fresh task and engine on "
+            f"the card, weights, both Adam states and the generator bit for "
+            f"bit ok; save {save_s:.3f} s, load {load_s:.3f} s for "
+            f"{size / 1e6:.1f} MB [{card}]")
+        _phase_nan_dump(task, td)
+        del task, engine
+        torch.cuda.empty_cache()
+
+        # resume from checkpoint_epoch_1 for one more epoch
+        step1 = _adam_step(run / "checkpoint_epoch_1")
+        argv = ["--architecture", "cyclevaegan", "--epochs", "2",
+                "--test_split", "0.25", "--output_dir", str(runs),
+                "--resume", str(run / "checkpoint_epoch_1"), *common]
+        try:
+            again = _driver(train_driver, argv, log)
+        finally:
+            data_datasets.set_decode_cache(None)
+        require(again == run, f"resume run directory {again}")
+        epochs = _check_epochs(probe, "resume cyclevaegan", 3, want_launches)
+        require([ep["epoch"] for ep in epochs] == [1],
+                f"resume epochs {[ep['epoch'] for ep in epochs]}")
+        step2 = _adam_step(run / "checkpoint_epoch_2")
+        require(step2 == step1 + 3, f"resume: Adam step {step1} -> {step2}")
+        scalars, _ = _tb_tags(run)
+        require(scalars["Loss/train"] == [0, 1],
+                f"resume: Loss/train steps {scalars['Loss/train']}")
+        say(f"resume: from checkpoint_epoch_1 at epoch 2, Adam step {step1} "
+            f"-> {step2}, TensorBoard events past epoch 1 truncated ok")
+
+        # Double* -> Cycle* transfer
+        pre = td / "pretrain"
+        common = [a for a in common if a not in ("--decode_cache",
+                                                 str(td / "img.cache"))]
+        dbl = _driver(train_driver, [
+            "--architecture", "doubleae", "--paired", "--epochs", "1",
+            "--test_split", "0.5", "--output_dir", str(pre), *common], log)
+        _check_epochs(probe, "train doubleae", 2,
+                      FAMILY_STEP_LAUNCHES["doubleae"])
+        source = torch.load(dbl / "checkpoint_epoch_1" / "state.pth",
+                            map_location="cpu", weights_only=True)
+        encoder = {k[len("encoder."):]: v
+                   for k, v in source["model_state_dict"].items()
+                   if k.startswith("encoder.")}
+
+        def transferred(engine):
+            G, F = engine.task.nets["G"], engine.task.nets["F"]
+            for net in (G, F):
+                got = net.encoder.state_dict()
+                for k, v in encoder.items():
+                    require(torch.equal(got[k].cpu(), v),
+                            f"transfer: encoder {k}")
+            shared = ({p.untyped_storage().data_ptr() for p in G.parameters()}
+                      & {p.untyped_storage().data_ptr()
+                         for p in F.parameters()})
+            require(not shared, f"transfer: G and F share {len(shared)} "
+                                f"storages")
+
+        probe.before = transferred
+        _driver(train_driver, [
+            "--architecture", "cycleae", "--paired", "--epochs", "1",
+            "--test_split", "0.5", "--output_dir", str(pre),
+            "--pretrained_doubleae", str(dbl / "checkpoint_epoch_1"),
+            *common], log)
+        require(probe.before is None, "transfer: the cycleae run took no step")
+        _check_epochs(probe, "train cycleae", 2,
+                      FAMILY_STEP_LAUNCHES["cycleae"])
+        say("transfer: doubleae (1 epoch of 2 batches) -> cycleae "
+            "--pretrained_doubleae: before the first step G's and F's "
+            "encoders equal the Double encoder bit for bit, G and F share no "
+            "storage ok")
+        torch.cuda.empty_cache()
+
+        _phase_test_driver(card, runs, td, td / "test_results", log)
+        torch.cuda.empty_cache()
+        _phase_fid(card, td)
+    torch.cuda.empty_cache()
+    say(f"drivers phase: {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
@@ -1891,6 +2341,14 @@ def main() -> None:
     exp = phase_experiments(card)
     torch.cuda.empty_cache()
     phase_data_engine(card)
+    torch.cuda.empty_cache()
+    phase_drivers(card)
+    # the kernels line: which phase drives each kernel. K1 (in_act), K3
+    # (starved_conv, starved_conv_zero_same) and K4 (starved_conv_dw): the
+    # serving and training paths (phases 4, 5, 7), the engine (10) and the
+    # drivers (11), their launches from phase 5's three training steps; K2
+    # (in_act_tiled): the tiled training path (6); K5-K8: the prototypes'
+    # entry points (8), their launches from those runs
     conv_src = "vae_cyclegan_tpu_torch/csrc/starved_conv.cu"
     sources = {"conv_proto": "vae_cyclegan_tpu_torch/csrc/conv_proto.cu",
                "lowcin_conv_cm": "vae_cyclegan_tpu_torch/csrc/lowcin_conv.cu",

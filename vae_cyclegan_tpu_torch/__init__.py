@@ -6,9 +6,11 @@ kernels for Hopper (``csrc/``, built by ``kernels.load`` at first use). The
 JAX package is the reference the port is tested against; this package
 imports neither it nor JAX.
 
-Ported so far: the cyclevaegan task, ``models.tasks.create_task(
-"cyclevaegan", ...)``: its serving path (``inference.run_inference``) and
-its training step (``train_step`` / ``eval_step``).
+Ported so far: the ten tasks (``models.tasks.create_task``: serving,
+training and evaluation), the data path and the epoch engine, and the
+drivers ``python -m vae_cyclegan_tpu_torch.train`` / ``.test`` with their
+checkpoints, transfer, NaN dumps, TensorBoard, preemption and FID
+(``utils``).
 """
 
 from vae_cyclegan_tpu_torch.config import LossConfig, ModelConfig, OptimConfig

@@ -25,7 +25,8 @@ the one of its first pass; without them the noise is drawn from
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
+from typing import (Callable, Dict, Iterable, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import torch
 import torch.nn as nn
@@ -36,6 +37,7 @@ from vae_cyclegan_tpu_torch.models.networks import (
     SpectralConv,
     VariationalAutoencoderNet,
 )
+from vae_cyclegan_tpu_torch.utils import nan_dump
 
 
 class Task:
@@ -99,28 +101,52 @@ class Task:
         return torch.optim.Adam(list(params), lr=self.oc.lr,
                                 betas=self.oc.betas, eps=self.oc.eps)
 
+    def optimizers(self) -> Dict[str, torch.optim.Optimizer]:
+        """The task's Adams under the reference checkpoint's keys:
+        {"optimizer"} for one optimizer, {"optimizer_G", "optimizer_D"} for
+        the adversarial tasks (``utils.checkpoint``)."""
+        if hasattr(self, "opt"):
+            return {"optimizer": self.opt}
+        return {"optimizer_G": self.opt_g, "optimizer_D": self.opt_d}
+
     @staticmethod
     def _finite_update(optimizer: torch.optim.Optimizer, loss: torch.Tensor,
                        params: Sequence[nn.Parameter],
-                       grads: Sequence[torch.Tensor]) -> float:
+                       grads: Sequence[torch.Tensor],
+                       dump: Optional[Callable] = None) -> float:
         """Apply the optimizer step only when the loss is finite; on a
         non-finite loss the step is skipped whole (parameters, moments and
-        Adam's count stay as they were). Returns the nan_detected flag, 1.0
+        Adam's count stay as they were) and ``dump()`` is called where
+        given (``utils.nan_dump``). Returns the nan_detected flag, 1.0
         when skipped. Reading the loss's finiteness waits for the device."""
         finite = bool(torch.isfinite(loss))
         if finite:
             for p, g in zip(params, grads):
                 p.grad = g
             optimizer.step()
+        elif dump is not None:
+            dump()
         for p in params:
             p.grad = None
         return 0.0 if finite else 1.0
 
     def _step(self, optimizer: torch.optim.Optimizer, loss: torch.Tensor,
-              params: Sequence[nn.Parameter]) -> float:
-        """The gradient of `loss` over `params`, then ``_finite_update``."""
+              params: Sequence[nn.Parameter],
+              batch: Optional[Mapping] = None) -> float:
+        """The gradient of `loss` over `params`, then ``_finite_update``;
+        while NaN dumps are enabled, its skip branch dumps `batch` and the
+        parameters and gradients under their state_dict names."""
         grads = torch.autograd.grad(loss, params)
-        return self._finite_update(optimizer, loss, params, grads)
+        if not nan_dump.enabled():
+            return self._finite_update(optimizer, loss, params, grads)
+
+        def dump():
+            names = {id(p): n for n, p in self.nets.named_parameters()}
+            nan_dump.write_dump(
+                loss, batch, {names[id(p)]: p for p in params},
+                {names[id(p)]: g for p, g in zip(params, grads)})
+
+        return self._finite_update(optimizer, loss, params, grads, dump)
 
     def _scalars(self, metrics: Mapping[str, torch.Tensor],
                  nan: float) -> Dict[str, torch.Tensor]:

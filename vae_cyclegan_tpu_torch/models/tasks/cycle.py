@@ -76,7 +76,7 @@ class _CycleTask(Task):
                    ) -> Dict[str, torch.Tensor]:
         _, _, total, parts = self._losses(
             batch, self._eps(eps, self.train_passes), generator)
-        nan = self._step(self.opt, total, self.params)
+        nan = self._step(self.opt, total, self.params, batch)
         return self._scalars({"total_loss": total, "G_loss": total, **parts},
                              nan)
 

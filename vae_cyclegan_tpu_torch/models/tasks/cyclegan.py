@@ -162,7 +162,7 @@ class _CycleGANBase(Task):
                     d_apply(self.DX, x, True), d_apply(self.DY, y, True))
         g_loss, loss_cycle, gan_parts, loss_kl, loss_identity = (
             self._g_losses(x, y, gens, d_scores))
-        nan_g = self._step(self.opt_g, g_loss, self.gen_params)
+        nan_g = self._step(self.opt_g, g_loss, self.gen_params, batch)
         del gens, d_scores
 
         # detached D calls, reference order: DY(Gx), DX(Fy), DX(x), DY(y)
@@ -174,7 +174,7 @@ class _CycleGANBase(Task):
         gan_d_x, d_x_real, d_x_fake = losses.gan_loss_discriminator(DXx, DXFy)
         gan_d_y, d_y_real, d_y_fake = losses.gan_loss_discriminator(DYy, DYGx)
         d_loss = gan_d_x + gan_d_y
-        nan_d = self._step(self.opt_d, d_loss, self.disc_params)
+        nan_d = self._step(self.opt_d, d_loss, self.disc_params, batch)
 
         metrics = self._metrics(g_loss, d_loss,
                                 (d_x_real, d_x_fake, d_y_real, d_y_fake),

@@ -100,13 +100,13 @@ class AEGANTask(_GANTask):
         DGx = d_apply(self.D, Gx, True)
         Dy = d_apply(self.D, y, True)
         g_loss, loss_trans, gan, loss_id = self._g_losses(y, Gx, Gy, DGx, Dy)
-        nan_g = self._step(self.opt_g, g_loss, self.gen_params)
+        nan_g = self._step(self.opt_g, g_loss, self.gen_params, batch)
         del Gy, DGx, Dy
 
         DGx_d = d_apply(self.D, Gx.detach(), True)
         Dy_d = d_apply(self.D, y, True)
         d_loss, d_real, d_fake = losses.gan_loss_discriminator(Dy_d, DGx_d)
-        nan_d = self._step(self.opt_d, d_loss, self.disc_params)
+        nan_d = self._step(self.opt_d, d_loss, self.disc_params, batch)
         return self._scalars({
             "G_loss": g_loss, "D_loss": d_loss, "D_loss_real": d_real,
             "D_loss_fake": d_fake, "loss_trans": loss_trans,
@@ -177,7 +177,7 @@ class VAEGANTask(_GANTask):
         Dy = d_apply(self.D, y, True)
         sp2 = self.D.spectral_state()
         g_loss, parts = self._g_losses(y, Gx, Gy, mu, logvar, DGx, Dy)
-        nan_g = self._step(self.opt_g, g_loss, self.gen_params)
+        nan_g = self._step(self.opt_g, g_loss, self.gen_params, batch)
         del Gy, DGx, Dy
 
         # the same (u, v) chains as the generator step's calls: from sp0
@@ -188,7 +188,7 @@ class VAEGANTask(_GANTask):
         Dy_d = d_apply(self.D, y, True)
         self.D.set_spectral_state(sp2)
         d_loss, d_real, d_fake = losses.gan_loss_discriminator(Dy_d, DGx_d)
-        nan_d = self._step(self.opt_d, d_loss, self.disc_params)
+        nan_d = self._step(self.opt_d, d_loss, self.disc_params, batch)
         return self._scalars({
             "G_loss": g_loss, "D_loss": d_loss,
             "loss_gan_disc_real": d_real, "loss_gan_disc_fake": d_fake,

@@ -51,7 +51,7 @@ class AutoencoderTask(_OneNetTask):
                    ) -> Dict[str, torch.Tensor]:
         self._eps(eps, self.train_passes)
         _, loss = self._losses(batch)
-        nan = self._step(self.opt, loss, self.params)
+        nan = self._step(self.opt, loss, self.params, batch)
         return self._scalars({"G_loss": loss, "loss_trans": loss,
                               "total_loss": loss}, nan)
 
@@ -94,7 +94,7 @@ class VAETask(_OneNetTask):
                    ) -> Dict[str, torch.Tensor]:
         _, g_loss, parts = self._losses(
             batch, self._eps(eps, self.train_passes), generator)
-        nan = self._step(self.opt, g_loss, self.params)
+        nan = self._step(self.opt, g_loss, self.params, batch)
         return self._scalars({"G_loss": g_loss, **parts}, nan)
 
     @torch.no_grad()
@@ -134,7 +134,7 @@ class DoubleAETask(_OneNetTask):
         self._eps(eps, self.train_passes)
         total, parts = self._losses(self._nchw(batch["x"]),
                                     self._nchw(batch["y"]))
-        nan = self._step(self.opt, total, self.params)
+        nan = self._step(self.opt, total, self.params, batch)
         return self._scalars({"G_loss": total, **parts, "total_loss": total},
                              nan)
 
@@ -193,7 +193,7 @@ class DoubleVAETask(_OneNetTask):
                                     self._nchw(batch["y"]),
                                     self._eps(eps, self.train_passes),
                                     generator)
-        nan = self._step(self.opt, total, self.params)
+        nan = self._step(self.opt, total, self.params, batch)
         return self._scalars({"G_loss": total, **parts, "total_loss": total},
                              nan)
 
