@@ -107,6 +107,24 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               the card against the CPU and fid_score; images/s of the
               training epochs and of ``test`` (logs in
               chiprun_out/drivers.log)
+ 12. export, remat, trajectories: the full-width bf16 cyclevaegan
+              generator exported with a symbolic batch
+              (``utils.export``), saved and loaded: its graph holds 5
+              vct::in_act and 2 vct::starved_conv nodes, at batch 1 and 4
+              it launches K1 and K3 as generate does and its output equals
+              generate's (bit for bit, else within the bf16 tolerance),
+              latencies at 1, 4 and 16 beside generate's, export / save /
+              load seconds; batch-24 steps with and without remat
+              (``ModelConfig.remat``): one step's metrics on the same noise
+              (bit for bit, else within rtol 2e-3), launches per step (the
+              recompute adds 5 K1 and 2 K3 per generator pass), step time
+              and peak memory, remat's below the other's; 10 steps of the
+              paired batch-4 task in bf16, f32 and four one-ulp twins of
+              f32 (``python -m vae_cyclegan_tpu_torch.parity_curves``), the
+              bf16 trajectory's mean G_loss and D_loss within max(2%, 2x the
+              largest twin's gap) of f32's, every value finite; the same for the tiled configuration (K2); the
+              host microseconds per call of the K1 / K3 / K4 sites through
+              the custom operators (``host_cost``)
 
 Each main path (the serving requests, each training run) is driven with
 every launch count set to 0 just before it and read just after it. Any
@@ -130,7 +148,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vae_cyclegan_tpu_torch import bench, kernels
+from vae_cyclegan_tpu_torch import bench, host_cost, kernels, parity_curves
 from vae_cyclegan_tpu_torch import test as test_driver
 from vae_cyclegan_tpu_torch import train as train_driver
 from vae_cyclegan_tpu_torch.config import ModelConfig
@@ -155,6 +173,7 @@ from vae_cyclegan_tpu_torch.experiments.common import (
     conv_operands,
     reflect_conv_reference,
 )
+from vae_cyclegan_tpu_torch.host_cost import host_us
 from vae_cyclegan_tpu_torch.inference import run_inference
 from vae_cyclegan_tpu_torch.models.tasks import ARCHITECTURES, create_task
 from vae_cyclegan_tpu_torch.ops.instance_norm import (
@@ -184,6 +203,7 @@ from vae_cyclegan_tpu_torch.utils import (
     nan_dump,
     save_checkpoint,
 )
+from vae_cyclegan_tpu_torch.utils import export as export_mod
 
 OUT_DIR = Path("chiprun_out")
 IMAGE, BASE, LATENT = 256, 64, 64
@@ -657,19 +677,6 @@ def check_in_edges(name: str, kernel, plain, seed: int) -> float:
         f"activation and order), max_abs_err {err:.3e}, each repeated bit "
         "for bit; path planes 16x16-128x128 on chip, 256x256 a cluster of 8")
     return err
-
-
-def host_us(fn, iters: int) -> float:
-    """Host microseconds per call over `iters` calls without a synchronize:
-    the wrapper's own cost, while the card runs behind it (where the card is
-    the slower side, the launch queue fills and this reads the card)."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    us = (time.perf_counter() - t0) / iters * 1e6
-    torch.cuda.synchronize()
-    return us
 
 
 def conv_work(x_shape, cout: int, k: int, out_hw, size: int,
@@ -2315,6 +2322,273 @@ def phase_drivers(card: str) -> None:
     torch.cuda.empty_cache()
     say(f"drivers phase: {time.perf_counter() - t0:.1f} s [{card}]")
 
+# phase 12: the generator export, rematerialization and the trajectories.
+# Latencies of the loaded program and of generate: median of 25 after 3
+# warm-ups, per batch size
+EXPORT_ITERS = 25
+# remat's batch: bench.py's default, where the memory it saves matters
+REMAT_BATCH = 24
+# one remat step's extra launches per generator pass: the recompute runs
+# the pass's forward again (5 K1 and U4's and the tail's K3 reflect; the
+# CPU test tests/test_torch_remat.py derives the same from the sites)
+REMAT_PASS_LAUNCHES = (5, 0, 2, 0, 0)
+# the trajectories: steps at the path's batch, and the bar on the bf16
+# trajectory's means against f32's: max(TRAJ_BAR, TRAJ_BAND x the f32
+# trajectory's one-ulp band). The band is the largest gap of four one-ulp
+# twins of the f32 run (every parameter up, and three seeded up/down coin
+# patterns), as the JAX package took the largest of five probes for vaegan:
+# D_loss is chaotic after the first update, so one twin's gap is one draw,
+# and against one draw the bf16 trajectory of a correct port would miss the
+# bar about one time in four (a normal model of the two gaps; four twins:
+# about one in twenty-five)
+TRAJ_STEPS = 10
+TRAJ_BAR, TRAJ_BAND = 0.02, 2.0
+TRAJ_TWINS = ("f32_ulp", "f32_ulp1", "f32_ulp2", "f32_ulp3")
+
+
+def _latency_ms(fn, iters: int) -> tuple:
+    """(median, min, max) host ms of `fn` + a synchronize, after 3
+    warm-ups."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(lat)), min(lat), max(lat)
+
+
+def _phase_export(card: str, td: Path) -> None:
+    """(a) the cyclevaegan generator exported with a symbolic batch, saved,
+    loaded; the loaded program against generate at batch 1 and 4 (launches
+    and outputs), latencies at 1, 4 and 16."""
+    task = _task(torch.bfloat16, DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    program = export_mod.export_generator(task)
+    export_s = time.perf_counter() - t0
+    path = td / "cyclevaegan.pt2"
+    t0 = time.perf_counter()
+    export_mod.save(program, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = export_mod.load(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    nodes = {}
+    for node in program.graph.nodes:
+        if node.op == "call_function" and str(node.target).startswith("vct."):
+            nodes[str(node.target)] = nodes.get(str(node.target), 0) + 1
+    require(nodes == {"vct.in_act.default": 5, "vct.starved_conv.default": 2},
+            f"export: vct nodes {nodes}")
+    require(served.device.type == "cuda" and served.meta["batch"] == "symbolic",
+            f"export: loaded on {served.device}, batch {served.meta['batch']}")
+    say(f"export: cyclevaegan generator (bf16, {IMAGE}x{IMAGE}, symbolic "
+        f"batch) with {nodes} in its graph; export {export_s:.2f} s, save "
+        f"{save_s:.2f} s ({path.stat().st_size / 1e6:.1f} MB), load "
+        f"{load_s:.2f} s [{card}]")
+    for b in BATCHES:
+        x = torch.as_tensor(_images(b, 60 + b), device=DEV)
+        eps = served.noise(b, b)
+        if b in (1, PATH_BATCH):
+            # the main path: the loaded program's launches, then generate's
+            _zero_counts()
+            got = served.run(x, eps)
+            torch.cuda.synchronize()
+            program_launches = _counts()
+            _zero_counts()
+            want = task.generate({"x": x}, eps=eps).float()
+            torch.cuda.synchronize()
+            generate_launches = _counts()
+            _no_experiment_launches("export")
+            require(program_launches == generate_launches == (5, 0, 2, 0, 0),
+                    f"export batch {b}: the program launched "
+                    f"{program_launches}, generate {generate_launches} of "
+                    f"{KERNEL_NAMES}")
+            require(got.dtype == torch.float32
+                    and tuple(got.shape) == (b, IMAGE, IMAGE, 3)
+                    and bool(torch.isfinite(got).all()),
+                    f"export batch {b}: {got.dtype} {tuple(got.shape)}")
+            if torch.equal(got, want):
+                say(f"check export batch {b}: the loaded program's output "
+                    f"equals generate's bit for bit; launches "
+                    f"{program_launches} = generate's ok")
+            else:
+                compare(f"export batch {b} program vs generate (bf16 "
+                        f"tolerance)", got, want, TOL[torch.bfloat16])
+        ms_p = _latency_ms(lambda: served.run(x, eps), EXPORT_ITERS)
+        ms_g = _latency_ms(lambda: task.generate({"x": x}, eps=eps),
+                           EXPORT_ITERS)
+        say(f"time export batch {b}: loaded program median {ms_p[0]:.3f} ms "
+            f"(min {ms_p[1]:.3f}, max {ms_p[2]:.3f}), generate median "
+            f"{ms_g[0]:.3f} ms (min {ms_g[1]:.3f}, max {ms_g[2]:.3f}) of "
+            f"{EXPORT_ITERS} [{card}]")
+    del task, program, served
+    torch.cuda.empty_cache()
+
+
+def _remat_run(remat: bool, batch: dict, eps: list) -> dict:
+    """A full-width bf16 cyclevaegan task (paired) with or without remat:
+    one step on the given noise (its metrics), the launches per step and
+    then the median of 5 timed steps after 2 warm-ups, and the peak device
+    memory over those."""
+    task = create_task("cyclevaegan", model=ModelConfig(
+        IMAGE, LATENT, BASE, torch.bfloat16, remat=remat), device=DEV)
+    task.init(0)
+    torch.cuda.synchronize()
+    _zero_counts()
+    metrics = _finite_metrics(task.train_step(batch, eps=eps))
+    launches = _counts()
+    _no_experiment_launches("remat")
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    for _ in range(2):
+        task.train_step(batch, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        vals = _finite_metrics(task.train_step(batch, generator=gen))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        require(vals["nan_detected"] == 0.0, "remat: a timed step skipped")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    del task
+    torch.cuda.empty_cache()
+    return {"metrics": metrics, "launches": launches,
+            "ms": float(np.median(lat)), "min": min(lat), "max": max(lat),
+            "peak": peak}
+
+
+def _phase_remat(card: str) -> None:
+    """(b) batch-24 steps with and without remat, in turns: one step's
+    metrics on the same noise, launches per step, step time, peak memory."""
+    b = REMAT_BATCH
+    batch = {"x": torch.as_tensor(_images(b, 70), device=DEV),
+             "y": torch.as_tensor(_images(b, 71), device=DEV)}
+    rng = np.random.RandomState(72)
+    eps = [rng.randn(b, IMAGE // 16, IMAGE // 16, LATENT).astype(np.float32)
+           for _ in range(6)]
+    plain = _remat_run(False, batch, eps)
+    remat = _remat_run(True, batch, eps)
+    want = tuple(s + 6 * r for s, r in zip(STEP_LAUNCHES, REMAT_PASS_LAUNCHES))
+    require(plain["launches"] == STEP_LAUNCHES and remat["launches"] == want,
+            f"remat launches per step {remat['launches']} (expected {want}), "
+            f"without {plain['launches']} (expected {STEP_LAUNCHES})")
+    got, ref = remat["metrics"], plain["metrics"]
+    same = all(got[k] == ref[k] for k in ref) and set(got) == set(ref)
+    if same:
+        say("check remat step vs plain step (batch 24, bf16, same weights "
+            "and noise): every metric equal bit for bit ok")
+    else:
+        worst = max(abs(got[k] - ref[k]) / (abs(ref[k]) + 1e-3) for k in ref)
+        ok = all(abs(got[k] - ref[k]) <= STEP_METRIC_RTOL * abs(ref[k]) + 1e-5
+                 for k in ref)
+        say(f"check remat step vs plain step (batch 24, bf16): metrics differ "
+            f"in their last bits, max relative error {worst:.3e} (rtol "
+            f"{STEP_METRIC_RTOL:g}, the card-vs-CPU step bound) "
+            f"{'ok' if ok else 'FAIL'}")
+        require(ok, f"remat step metrics {got} vs {ref}")
+    require(remat["peak"] < plain["peak"],
+            f"remat peak {remat['peak']:.0f} MiB not below {plain['peak']:.0f}")
+    for label, r in (("without remat", plain), ("remat", remat)):
+        say(f"time train_step cyclevaegan batch {b} bf16 {label}: median "
+            f"{r['ms']:.2f} ms of 5 (min {r['min']:.2f}, max {r['max']:.2f}), "
+            f"{b / r['ms'] * 1e3:.1f} img/s, peak memory {r['peak']:.0f} MiB, "
+            f"launches per step {dict(zip(KERNEL_NAMES, r['launches']))} "
+            f"[{card}]")
+    say(f"remat at batch {b}: peak {remat['peak']:.0f} / {plain['peak']:.0f} "
+        f"MiB = {remat['peak'] / plain['peak']:.3f}, step time "
+        f"{remat['ms'] / plain['ms']:.3f}x [{card}]")
+
+
+def _trajectories(runs, instance_norm: str, out: Path) -> dict:
+    """``python -m vae_cyclegan_tpu_torch.parity_curves`` in process:
+    cyclevaegan at full width, TRAJ_STEPS steps at the path's batch, every
+    run from the same weights and data; its record, with the launches the
+    runs made (counts set to 0 just before, read just after)."""
+    _zero_counts()
+    rc = parity_curves.main([
+        "--archs", "cyclevaegan", "--steps", str(TRAJ_STEPS),
+        "--image_size", str(IMAGE), "--batch", str(PATH_BATCH),
+        "--base_width", str(BASE), "--latent_dim", str(LATENT),
+        "--instance_norm", instance_norm, "--runs", *runs,
+        "--reference", "f32", "--out", str(out)])
+    torch.cuda.synchronize()
+    require(rc == 0, f"parity_curves exited {rc}")
+    (rec,) = json.loads(out.read_text())
+    rec["launches"] = _counts()
+    _no_experiment_launches("trajectory")
+    for run in runs:
+        values = rec[f"{run}_G_loss"] + rec[f"{run}_D_loss"]
+        require(all(np.isfinite(values)), f"trajectory {run}: {values}")
+        require(not any(rec[f"{run}_nan_detected"]),
+                f"trajectory {run} skipped an update")
+    return rec
+
+
+def _phase_trajectory(card: str) -> None:
+    """(c) the bf16 trajectory (the kernels) against the f32 one, beside
+    the f32 trajectory's own one-ulp band; then the tiled configuration's
+    bf16 trajectory against its f32 one, under the same band."""
+    OUT_DIR.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    auto = _trajectories(["bf16", "f32", *TRAJ_TWINS], "auto",
+                         OUT_DIR / "parity_curves.json")
+    per_run = tuple(TRAJ_STEPS * n for n in STEP_LAUNCHES)
+    runs = 2 + len(TRAJ_TWINS)
+    require(auto["launches"] == tuple(runs * n for n in per_run),
+            f"trajectory launches {auto['launches']}: expected {runs} runs x "
+            f"{per_run}")
+    band = {k: max(auto["gaps"][t][k]["mean"] for t in TRAJ_TWINS)
+            for k in ("G_loss", "D_loss")}
+    for twin in TRAJ_TWINS:
+        say(f"trajectory f32 one-ulp twin {twin}: mean gaps to f32 " + ", ".join(
+            f"{k} {g['mean']:.4%}" for k, g in auto["gaps"][twin].items()))
+    tiled = _trajectories(["bf16", "f32"], "tiled",
+                          OUT_DIR / "parity_curves_tiled.json")
+    per_run = tuple(TRAJ_STEPS * n for n in TILED_STEP_LAUNCHES)
+    require(tiled["launches"] == tuple(2 * n for n in per_run),
+            f"tiled trajectory launches {tiled['launches']}: expected 2 runs "
+            f"x {per_run}")
+    for label, rec in (("auto", auto), ("tiled", tiled)):
+        for run in rec["runs"]:
+            means = ", ".join(
+                f"{k} mean {np.mean(rec[f'{run}_{k}']):.5f}"
+                for k in ("G_loss", "D_loss"))
+            say(f"trajectory {label} {run} ({TRAJ_STEPS} steps, batch "
+                f"{PATH_BATCH}): {means}; G_loss "
+                f"{[round(v, 4) for v in rec[f'{run}_G_loss']]}")
+        for key, gap in rec["gaps"]["bf16"].items():
+            bar = max(TRAJ_BAR, TRAJ_BAND * band[key])
+            ok = gap["mean"] <= bar
+            say(f"check trajectory {label} bf16 vs f32 {key}: mean gap "
+                f"{gap['mean']:.4%} (largest step gap {gap['max']:.4%}); bar "
+                f"max({TRAJ_BAR:.0%}, {TRAJ_BAND:g} x the f32 one-ulp band "
+                f"{band[key]:.4%}, the largest of {len(TRAJ_TWINS)} twins) = "
+                f"{bar:.4%} {'ok' if ok else 'FAIL'}")
+            require(ok, f"trajectory {label} bf16 vs f32 {key}")
+    say(f"trajectory phase: {time.perf_counter() - t0:.1f} s (curves in "
+        f"{OUT_DIR}/parity_curves*.json) [{card}]")
+
+
+def phase_export_remat_trajectory(card: str) -> None:
+    """Phase 12: (a) export, (b) remat, (c) trajectories, then the host
+    cost per call of the custom-op path."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _phase_export(card, Path(tmp))
+    _phase_remat(card)
+    _phase_trajectory(card)
+    us = host_cost.measure()
+    say("host us per call through the vct ops: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in us.items()) + f" [{card}]")
+    say(f"phase 12 (export, remat, trajectories): "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+
 
 def main() -> None:
     card = phase_card()
@@ -2343,6 +2617,8 @@ def main() -> None:
     phase_data_engine(card)
     torch.cuda.empty_cache()
     phase_drivers(card)
+    torch.cuda.empty_cache()
+    phase_export_remat_trajectory(card)
     # the kernels line: which phase drives each kernel. K1 (in_act), K3
     # (starved_conv, starved_conv_zero_same) and K4 (starved_conv_dw): the
     # serving and training paths (phases 4, 5, 7), the engine (10) and the

@@ -2,7 +2,7 @@
 ``.test``, against the JAX package's train.py and test.py.
 
 * Flag surface: every flag of JAX's train parser and test.py's parser, with
-  the same defaults; the flags that wait for queue 1's items 7, 9 and 10
+  the same defaults; the flags that queue 1's items 7 and 10 leave refused
   raise with the item named; the card is the default device.
 * A fresh run on the CPU (2 epochs of 2 batches): train.py's run-directory
   layout and TensorBoard tags, and ``args.json`` equal to what JAX's driver
@@ -101,8 +101,7 @@ def test_test_flag_surface_matches_jax():
 
 @pytest.mark.parametrize("flags,item", [
     (["--num_devices", "2"], "item 7"), (["--spatial", "2"], "item 7"),
-    (["--multihost"], "item 7"), (["--remat"], "item 9"),
-    (["--no_pallas"], "item 10")])
+    (["--multihost"], "item 7"), (["--no_pallas"], "item 10")])
 def test_train_refuses_unported_flags(flags, item, data_root, tmp_path):
     args = port_train.build_parser().parse_args(
         ["--platform", "cpu", "--architecture", "cyclevaegan", "--data_dir",

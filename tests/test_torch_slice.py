@@ -151,7 +151,7 @@ def test_init_is_seeded_and_matches_reference_init():
 
 def test_configs_default_to_the_jax_package_values():
     """Field for field, the JAX configs' defaults, with torch dtypes; JAX's
-    use_pallas maps to instance_norm, its remat has no counterpart."""
+    use_pallas maps to instance_norm, its remat is remat."""
     jcfg = importlib.import_module("vae_cyclegan_tpu.config")
     tcfg = importlib.import_module("vae_cyclegan_tpu_torch.config")
     for name in ("ModelConfig", "OptimConfig", "LossConfig"):
@@ -160,7 +160,7 @@ def test_configs_default_to_the_jax_package_values():
         if name == "ModelConfig":
             assert got.pop("instance_norm") == tcfg.instance_norm_mode(
                 want.pop("use_pallas")) == "auto"
-            assert not want.pop("remat")
+            assert got.pop("remat") is want.pop("remat") is False
             assert want.pop("dtype") == jnp.float32
             assert got.pop("dtype") == torch.float32
         assert got == want, name

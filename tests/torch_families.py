@@ -104,20 +104,20 @@ def xla_starved_convs(monkeypatch):
     monkeypatch.setattr(jsc, "_dw_call", dw)
 
 
-def run_pair(name, use_pallas=None, paired=True):
+def run_pair(name, use_pallas=None, paired=True, remat=False):
     """The JAX task and the port's from the JAX task's initial state: the
     bridge's round trip of that state, generate and eval_step on it, then
     one train_step (metrics, params and spectral trees, the port's carried
     back through the JAX package's torch importer, and the discriminators'
-    Adam first moments). `paired` goes to both tasks."""
+    Adam first moments). `paired` and `remat` go to both tasks."""
     jtask = jax_create_task(name, model=JModelConfig(
         image_size=IMAGE, latent_dim=LATENT, base_width=BASE,
-        use_pallas=use_pallas), paired=paired)
+        use_pallas=use_pallas, remat=remat), paired=paired)
     state = jax.jit(jtask.init_state)(jax.random.PRNGKey(0))
     init = (np_tree(state.params), np_tree(state.spectral))
     ttask = create_task(name, model=ModelConfig(
-        IMAGE, LATENT, BASE, instance_norm=instance_norm_mode(use_pallas)),
-        paired=paired, device="cpu")
+        IMAGE, LATENT, BASE, instance_norm=instance_norm_mode(use_pallas),
+        remat=remat), paired=paired, device="cpu")
     ttask.load_state_dict(params_from_jax(*init), strict=True)
     out = {"init": init, "bridge": torch_import.import_reference_state_dict(
         name, {k: v.numpy().copy() for k, v in ttask.state_dict().items()})}

@@ -15,11 +15,13 @@ BENCH_BATCH (24), BENCH_STEPS (10), BENCH_PRECISION (bf16 | float32),
 BENCH_IMAGE_SIZE (256), BENCH_PHASE (all | e2e | loader), BENCH_E2E_MODE
 (host | device), BENCH_E2E_STEPS (12), BENCH_LOADER_STEPS (24),
 BENCH_LOADER_WORKERS (1,4), BENCH_TRACE, BENCH_E2E and BENCH_LOADER_ONLY
-(1; 0 skips that part). BENCH_DEVICE (cuda) names the torch device; the
-tests set it to cpu. ``bench.py``'s BENCH_SPATIAL, BENCH_NO_PALLAS,
-BENCH_REMAT and BENCH_UNIFIED have no counterpart in the port yet
-(ROADMAP.md queue 1, items 7, 10 and 9, and the JAX engine's lowering): if
-one is set, the bench fails.
+(1; 0 skips that part), BENCH_REMAT (1 rematerializes the generator
+passes, ``ModelConfig.remat``). BENCH_DEVICE (cuda) names the torch device;
+the tests set it to cpu. ``bench.py``'s BENCH_SPATIAL and BENCH_UNIFIED
+have no counterpart in the port yet (ROADMAP.md queue 1, item 7, and the
+JAX engine's lowering), and BENCH_NO_PALLAS has none by design (item 10: no
+switch turns the kernels off, and no caller of the port needs a plain-only
+mode): if one is set, the bench fails.
 
 Phases: the step (3 warm-up steps, then the median of 3 windows of
 BENCH_STEPS steps, each window closed by reading G_loss; per-step times
@@ -47,8 +49,7 @@ import torch
 REFERENCE_CPU_IMAGES_PER_SEC = 0.04589  # cyclevaegan, measured (BASELINE.md)
 ROOT = Path(__file__).resolve().parents[1]
 #: bench.py's switches that the port does not have
-UNPORTED = ("BENCH_SPATIAL", "BENCH_NO_PALLAS", "BENCH_REMAT",
-            "BENCH_UNIFIED")
+UNPORTED = ("BENCH_SPATIAL", "BENCH_NO_PALLAS", "BENCH_UNIFIED")
 #: kernel launches of one unpaired cyclevaegan train_step at 256x256, base
 #: 64, bf16, "auto" IN (tests/test_torch_bench.py holds them to the step's
 #: kernel sites): K1, K3 reflect, K3 zero_same, K4
@@ -190,7 +191,8 @@ def main() -> None:
 
     mc = ModelConfig(image_size=image_size, latent_dim=64, base_width=64,
                      dtype=torch.bfloat16 if precision == "bf16"
-                     else torch.float32)
+                     else torch.float32,
+                     remat=os.environ.get("BENCH_REMAT", "0") == "1")
     # the BASELINE config #5: unpaired summer2winter-style full dual cycle
     task = create_task(arch, model=mc, paired=False, device=dev)
     task.init(0)
@@ -246,6 +248,7 @@ def main() -> None:
         "device": _card(dev),
         "syncs_per_step": syncs,
         "launches_per_step": launches,
+        "remat": mc.remat,
     }
     if os.environ.get("BENCH_TRACE", "1") != "0":
         try:

@@ -2,9 +2,9 @@
 
 Counterpart of ``vae_cyclegan_tpu/config.py`` with torch dtypes. The JAX
 config's ``use_pallas`` becomes ``instance_norm`` (``instance_norm_mode``
-maps one onto the other); its ``remat`` has no counterpart:
-rematerialization (``torch.utils.checkpoint``) waits until a batch needs it
-(ROADMAP.md).
+maps one onto the other); its ``remat`` is ``remat`` here too: the training
+steps recompute each generator pass in its backward
+(``torch.utils.checkpoint``, ``Task._maybe_remat``).
 """
 
 from __future__ import annotations
@@ -49,6 +49,10 @@ class ModelConfig:
       instance_norm: "auto" (the one-pass kernel where a sample's slab is at
         most 1 MB, the plain version above) or "tiled" (the two-pass kernel
         at every InstanceNorm site but the Decoder's channel-major U4).
+      remat: recompute every generator pass of a training step in its
+        backward instead of keeping its activations (JAX's ``remat``, the
+        same passes): less device memory, one more generator forward per
+        pass.
     """
 
     image_size: int = 256
@@ -56,6 +60,7 @@ class ModelConfig:
     base_width: int = 64
     dtype: torch.dtype = torch.float32
     instance_norm: str = "auto"
+    remat: bool = False
 
     def __post_init__(self):
         if self.instance_norm not in INSTANCE_NORM_MODES:

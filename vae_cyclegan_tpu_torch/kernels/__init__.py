@@ -18,6 +18,13 @@ and for the conv prototypes of ``experiments/``
 ``experiments.lowcin_conv2.lowcin_conv_cm_cuda``,
 ``experiments.lowcin_conv3.lowcin_conv_nhwc_cuda`` and
 ``experiments.dw_dot_probe.dot_probe_cuda``.
+
+The model path reaches K1-K4 through custom operators, ``vct::in_act``,
+``vct::in_act_tiled``, ``vct::starved_conv`` and ``vct::starved_dw``
+(``kernels.ops``): their dispatch sends a CUDA tensor to the wrapper and a
+CPU tensor to the plain version, and ``torch.export`` records each call as
+one node, so an exported generator launches the hand kernels on the card.
+K5-K8 run on no model path and are called through their wrappers.
 """
 
 from __future__ import annotations

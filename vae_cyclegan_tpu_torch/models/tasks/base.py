@@ -21,15 +21,25 @@ in call order (``train_passes``, ``eval_passes``). ``eps`` is then a list of
 NHWC noise tensors, one per pass in that order, and ``generate``'s ``eps``
 the one of its first pass; without them the noise is drawn from
 ``generator`` (or the device's default one).
+
+Rematerialization (``ModelConfig.remat``): the training steps wrap the
+generator passes JAX's tasks wrap in ``jax.checkpoint`` in
+``torch.utils.checkpoint`` (``_maybe_remat``), so their activations are
+recomputed in the backward. A variational pass's noise is then drawn before
+the checkpointed call and passed in: ``checkpoint`` replays only the default
+generators, so noise drawn inside from an explicit ``torch.Generator``
+would differ in the recompute and the gradient would be wrong.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import (Callable, Dict, Iterable, List, Mapping, Optional,
                     Sequence, Tuple)
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from vae_cyclegan_tpu_torch.config import LossConfig, ModelConfig, OptimConfig
 from vae_cyclegan_tpu_torch.models.blocks import ReflectConv
@@ -183,14 +193,39 @@ class Task:
         e = self._eps(None if eps is None else [eps], self.train_passes[:1])
         return e[0] if e else None
 
+    def _remat(self) -> bool:
+        """Whether generator passes are rematerialized now: the
+        configuration asks for it and autograd is recording."""
+        return self.mc.remat and torch.is_grad_enabled()
+
+    def _maybe_remat(self, fn: Callable) -> Callable:
+        """`fn` under ``torch.utils.checkpoint`` (non-reentrant) while
+        ``_remat()``, else `fn` itself (JAX's ``_maybe_remat``)."""
+        if not self._remat():
+            return fn
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+
+    def _noise(self, v: torch.Tensor,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The noise a variational pass over the NCHW image batch `v` would
+        draw from `generator`: (B, latent_dim, H/16, W/16) f32, drawn as
+        ``networks.VariationalEncoderBlock`` draws it."""
+        n, _, h, w = v.shape
+        return torch.randn((n, self.mc.latent_dim, h // 16, w // 16),
+                           generator=generator, device=v.device,
+                           dtype=torch.float32)
+
     def _gen(self, net: nn.Module, v: torch.Tensor,
              eps: Optional[torch.Tensor],
              generator: Optional[torch.Generator]):
-        """(image, mu, logvar) of one generator pass; mu and logvar are None
-        for an autoencoder."""
+        """(image, mu, logvar) of one generator pass, rematerialized while
+        ``_remat()``; mu and logvar are None for an autoencoder."""
+        fwd = self._maybe_remat(net)
         if isinstance(net, VariationalAutoencoderNet):
-            return net(v, eps, generator)
-        return net(v), None, None
+            if eps is None and self._remat():
+                eps = self._noise(v, generator)
+            return fwd(v, eps, generator)
+        return fwd(v), None, None
 
     # -- protocol ----------------------------------------------------------
 

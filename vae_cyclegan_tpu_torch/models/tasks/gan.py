@@ -96,7 +96,8 @@ class AEGANTask(_GANTask):
                    ) -> Dict[str, torch.Tensor]:
         self._eps(eps, self.train_passes)
         x, y = self._nchw(batch["x"]), self._nchw(batch["y"])
-        Gx, Gy = self.G(x), self.G(y)
+        Gx = self._gen(self.G, x, None, None)[0]
+        Gy = self._gen(self.G, y, None, None)[0]
         DGx = d_apply(self.D, Gx, True)
         Dy = d_apply(self.D, y, True)
         g_loss, loss_trans, gan, loss_id = self._g_losses(y, Gx, Gy, DGx, Dy)
@@ -148,8 +149,8 @@ class VAEGANTask(_GANTask):
                                          self.mc.base_width, **self._net_kw())
 
     def _forward(self, x, y, eps, generator):
-        Gx, mu, logvar = self.G(x, eps[0], generator)
-        Gy, _, _ = self.G(y, eps[1], generator)
+        Gx, mu, logvar = self._gen(self.G, x, eps[0], generator)
+        Gy, _, _ = self._gen(self.G, y, eps[1], generator)
         return Gx, Gy, mu, logvar
 
     def _g_losses(self, y, Gx, Gy, mu, logvar, DGx, Dy):

@@ -43,7 +43,7 @@ class AutoencoderTask(_OneNetTask):
 
     def _losses(self, batch):
         x, y = self._nchw(batch["x"]), self._nchw(batch["y"])
-        Gx = self.nets(x)
+        Gx = self._gen(self.nets, x, None, None)[0]
         return Gx, losses.translation_loss(Gx, y)
 
     def train_step(self, batch: Mapping, eps: Optional[List] = None,
@@ -83,7 +83,7 @@ class VAETask(_OneNetTask):
 
     def _losses(self, batch, eps, generator):
         x, y = self._nchw(batch["x"]), self._nchw(batch["y"])
-        Gx, mu, logvar = self.nets(x, eps[0], generator)
+        Gx, mu, logvar = self._gen(self.nets, x, eps[0], generator)
         loss_trans = losses.translation_loss(Gx, y)
         loss_kl = losses.kl_divergence(mu, logvar)
         return Gx, loss_trans + self.lc.lambda_kl * loss_kl, {
@@ -122,7 +122,7 @@ class DoubleAETask(_OneNetTask):
         return DoubleAENet(self.mc.base_width, **self._net_kw())
 
     def _losses(self, x, y):
-        Gx, Gy = self.nets(x, y)
+        Gx, Gy = self._maybe_remat(self.nets)(x, y)
         loss_a = losses.translation_loss(Gx, x)
         loss_b = losses.translation_loss(Gy, y)
         return loss_a + loss_b, {"loss_recon_A": loss_a,
@@ -175,8 +175,11 @@ class DoubleVAETask(_OneNetTask):
                             **self._net_kw())
 
     def _losses(self, x, y, eps, generator):
-        Gx, Gy, mu_x, lv_x, mu_y, lv_y = self.nets(x, y, eps[0], eps[1],
-                                                   generator)
+        if self._remat():  # both passes' noise before the checkpointed call
+            eps = [self._noise(v, generator) if e is None else e
+                   for v, e in zip((x, y), eps)]
+        Gx, Gy, mu_x, lv_x, mu_y, lv_y = self._maybe_remat(self.nets)(
+            x, y, eps[0], eps[1], generator)
         loss_a = losses.translation_loss(Gx, x)
         loss_b = losses.translation_loss(Gy, y)
         kl_a = losses.kl_divergence(mu_x, lv_x)

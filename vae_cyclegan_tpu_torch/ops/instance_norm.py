@@ -31,8 +31,12 @@ memory once, held on chip (a warp, a CTA or a thread block cluster per
 plane, by its size) and written once, in one launch; they differ only in the
 variance formula.
 
-A CUDA tensor that the rule selects launches the kernel or raises; CPU and
-``meta`` tensors take the plain version.
+The kernels are reached through the custom operators ``vct::in_act`` (K1)
+and ``vct::in_act_tiled`` (K2) of ``kernels.ops``, whose dispatch picks the
+implementation by device: a CUDA tensor that the rule selects launches the
+kernel or raises; CPU tensors take the plain version, ``meta`` tensors the
+operator's fake. A call that needs no gradient calls the operator directly
+(so ``torch.export`` of an inference path records it as one node).
 
 Every path is a ``torch.autograd.Function`` whose backward is plain torch in
 f32, returning x's dtype, as the JAX package's custom VJPs are jnp:
@@ -54,6 +58,7 @@ from typing import Callable, Dict
 import torch
 
 from vae_cyclegan_tpu_torch import kernels
+from vae_cyclegan_tpu_torch.kernels import ops as kernel_ops
 
 EPS = 1e-5
 SLAB_BYTES = 1024 * 1024
@@ -300,16 +305,23 @@ def plane_plan(hw: int, dtype: torch.dtype, vector_ok: bool = True) -> dict:
             "cluster": out[3]}
 
 
+def _tiled_forward(x: torch.Tensor, act: str, order: str,
+                   eps: float) -> torch.Tensor:
+    """The tiled kernel (K2), or ``fused_reference`` where JAX's tile does
+    not divide H*W."""
+    if not tiles_fit(x.shape):
+        return fused_reference(x, act, order, eps)
+    return kernel_ops.in_act_tiled(x, act, order, eps)
+
+
 class _InActFused(torch.autograd.Function):
-    """The kernel sites: kernel forward (plain off the card), saves x."""
+    """The kernel sites: K1's operator forward, saves x."""
 
     @staticmethod
     def forward(ctx, x, act, order, eps):
         ctx.save_for_backward(x)
         ctx.cfg = (act, order, eps)
-        if x.device.type == "cuda":
-            return in_act_cuda(x.contiguous(), act, order, eps)
-        return fused_reference(x, act, order, eps)
+        return kernel_ops.in_act(x, act, order, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -318,19 +330,13 @@ class _InActFused(torch.autograd.Function):
 
 
 class _InActTiled(torch.autograd.Function):
-    """The tiled configuration's sites: the tiled kernel forward (plain
-    off the card; ``fused_reference`` where JAX's tile does not divide H*W),
-    saves x."""
+    """The tiled configuration's sites: ``_tiled_forward``, saves x."""
 
     @staticmethod
     def forward(ctx, x, act, order, eps):
         ctx.save_for_backward(x)
         ctx.cfg = (act, order, eps)
-        if not tiles_fit(x.shape):
-            return fused_reference(x, act, order, eps)
-        if x.device.type == "cuda":
-            return in_act_tiled_cuda(x.contiguous(), act, order, eps)
-        return tiled_reference(x, act, order, eps)
+        return _tiled_forward(x, act, order, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -366,12 +372,19 @@ def instance_norm_act(x: torch.Tensor, *, act: str = "relu",
         raise ValueError(f"unknown order {order}")
     if mode not in MODES:
         raise ValueError(f"unknown instance norm mode {mode}")
+    grad = torch.is_grad_enabled() and x.requires_grad
     if mode == "tiled":
         if tiles_fit(x.shape):
             kernels.note_site("in_act_tiled", x.shape, x.dtype, act=act,
                               order=order)
+        if not grad:
+            return _tiled_forward(x, act, order, eps)
         return _InActTiled.apply(x, act, order, eps)
     if mode == "auto" and slab_fits(x.shape):
         kernels.note_site("in_act", x.shape, x.dtype, act=act, order=order)
+        if not grad:
+            return kernel_ops.in_act(x, act, order, eps)
         return _InActFused.apply(x, act, order, eps)
+    if not grad:
+        return fused_reference(x, act, order, eps)
     return _InActPlain.apply(x, act, order, eps)

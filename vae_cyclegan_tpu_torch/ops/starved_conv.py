@@ -22,8 +22,12 @@ The kernels live in ``csrc/starved_conv.cu`` (all three padding modes of
 reflect forward runs at U4 (k3, 32->64) and the tail (k7, 64->3), dx at U4,
 the tail and, where the input needs a gradient, the head (k7, 3->64), and dw
 at all three, at 256x256. Every other conv takes the plain version,
-``reflect_conv``, and autograd. A CUDA tensor that the rule selects launches
-the kernel or raises; CPU and ``meta`` tensors take the plain versions.
+``reflect_conv``, and autograd. The kernels are reached through the custom
+operators ``vct::starved_conv`` (K3, by padding mode) and ``vct::starved_dw``
+(K4) of ``kernels.ops``, whose dispatch picks the implementation by device:
+a CUDA tensor that the rule selects launches the kernel or raises; CPU
+tensors take the plain versions, ``meta`` tensors the operators' fakes. A
+call that needs no gradient runs the forward without the Function.
 
 The JAX package's channel-major entry points and ``VCT_*`` knobs steer TPU
 layouts and tiles; they have no counterpart here.
@@ -37,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from vae_cyclegan_tpu_torch import kernels
+from vae_cyclegan_tpu_torch.kernels import ops as kernel_ops
 from vae_cyclegan_tpu_torch.ops.instance_norm import DTYPE_CODES
 from vae_cyclegan_tpu_torch.ops.padding import reflect_pad
 from vae_cyclegan_tpu_torch.ops.reflect_conv import reflect_conv
@@ -190,17 +195,13 @@ def _zero_same(g: torch.Tensor, wrot: torch.Tensor) -> torch.Tensor:
     k = wrot.shape[-1]
     kernels.note_site("starved_conv_dx", g.shape, g.dtype, k=k,
                       cin=wrot.shape[1], cout=wrot.shape[0])
-    if g.device.type == "cuda":
-        return zero_conv_cuda(g.contiguous(), wrot.contiguous(), "zero_same")
-    return zero_conv(g, wrot, "zero_same")
+    return kernel_ops.starved_conv(g, wrot, "zero_same")
 
 
 def _dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     kernels.note_site("starved_conv_dw", x.shape, x.dtype, k=k,
                       cin=x.shape[1], cout=g.shape[1])
-    if x.device.type == "cuda":
-        return dw_cuda(x.contiguous(), g.contiguous(), k)
-    return dw_reference(x, g, k)
+    return kernel_ops.starved_dw(x, g, k)
 
 
 def rotate(w: torch.Tensor) -> torch.Tensor:
@@ -277,6 +278,17 @@ def reflect_fold(gp: torch.Tensor, pad: int) -> torch.Tensor:
                       core[..., w - 1:w]], dim=3)
 
 
+def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The starved conv's forward: K3 in reflect mode where ``fwd_wins``,
+    else the plain conv."""
+    cout, cin, k, _ = w.shape
+    if not fwd_wins(k, cin, cout):
+        return reflect_conv(x, w)
+    kernels.note_site("starved_conv", x.shape, x.dtype, k=k, cin=cin,
+                      cout=cout)
+    return kernel_ops.starved_conv(x, w, "reflect")
+
+
 class _StarvedConv(torch.autograd.Function):
     """The reflect-SAME conv of the starved shapes with its exact gradient;
     saves only (x, w)."""
@@ -284,14 +296,7 @@ class _StarvedConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         ctx.save_for_backward(x, w)
-        cout, cin, k, _ = w.shape
-        if not fwd_wins(k, cin, cout):
-            return reflect_conv(x, w)
-        kernels.note_site("starved_conv", x.shape, x.dtype, k=k, cin=cin,
-                          cout=cout)
-        if x.device.type == "cuda":
-            return reflect_conv_cuda(x.contiguous(), w.contiguous())
-        return reflect_conv(x, w)
+        return _forward(x, w)
 
     @staticmethod
     def backward(ctx, gy: torch.Tensor
@@ -310,6 +315,8 @@ def starved_reflect_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Reflect-padded SAME conv (stride 1, odd k, NCHW x, OIHW w, no bias),
     differentiable: the starved shapes go through the kernels (forward where
     ``fwd_wins``, both gradients always), the rest to ``reflect_conv``."""
-    if supported(x.shape, w.shape, x.dtype):
+    if not supported(x.shape, w.shape, x.dtype):
+        return reflect_conv(x, w)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _StarvedConv.apply(x, w)
-    return reflect_conv(x, w)
+    return _forward(x, w)

@@ -17,12 +17,14 @@ a CUDA device the task raises. The JAX flags map as follows:
                      reference's own toggle
   --profile_dir      a ``torch.profiler`` trace of the first epoch, written
                      for TensorBoard's profile tab
+  --remat            ``ModelConfig.remat``: the generator passes
+                     recomputed in the backward (``torch.utils.checkpoint``)
   --device_aug, --decode_cache, --no_nan_dump   as in the JAX driver
 
-Refused, each with an error naming the ROADMAP.md item it waits for:
-``--num_devices`` above 1, ``--spatial`` above 1 and ``--multihost``
-(queue 1, item 7: data parallelism), ``--remat`` (item 9) and
-``--no_pallas`` (item 10).
+Refused, each with an error naming its ROADMAP.md item: ``--num_devices``
+above 1, ``--spatial`` above 1 and ``--multihost`` (queue 1, item 7: data
+parallelism, not ported yet) and ``--no_pallas`` (item 10: no switch turns
+the port's kernels off, and no caller of the port needs a plain-only mode).
 """
 
 from __future__ import annotations
@@ -90,12 +92,10 @@ def refuse_unported(args) -> None:
     if args.multihost:
         waits.append("--multihost (ROADMAP.md queue 1, item 7: "
                      "torch.distributed)")
-    if args.remat:
-        waits.append("--remat (ROADMAP.md queue 1, item 9: "
-                     "rematerialization)")
     if args.no_pallas:
         waits.append("--no_pallas (ROADMAP.md queue 1, item 10: no switch "
-                     "turns the port's kernels off)")
+                     "turns the port's kernels off, and no caller of the "
+                     "port needs a plain-only mode)")
     if waits:
         raise NotImplementedError("not ported: " + "; ".join(waits))
 
@@ -194,6 +194,7 @@ def build_task(args, device):
         latent_dim=args.latent_dim,
         base_width=args.base_width,
         dtype=torch.bfloat16 if args.precision == "bf16" else torch.float32,
+        remat=args.remat,
     )
     oc = OptimConfig(lr=args.lr)
     lc = LossConfig(
@@ -524,10 +525,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Spatial-parallel axis size: not ported above "
                              "1 (ROADMAP.md queue 1, item 7)")
     parser.add_argument("--remat", action="store_true",
-                        help="Rematerialize generator forwards: not ported "
-                             "(ROADMAP.md queue 1, item 9)")
+                        help="Rematerialize generator forwards "
+                             "(torch.utils.checkpoint) to fit device memory")
     parser.add_argument("--no_pallas", action="store_true",
-                        help="Turn the kernels off: not ported (ROADMAP.md "
+                        help="Turn the kernels off: refused, no caller of "
+                             "the port needs a plain-only mode (ROADMAP.md "
                              "queue 1, item 10)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--quiet", action="store_true",
