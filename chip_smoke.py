@@ -82,10 +82,11 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               batches, its metrics finite, no skipped update, then
               validate; device_augment on the card against the port's CPU
               device_augment on a raw batch; and ``python -m
-              vae_cyclegan_tpu_torch.bench`` at its defaults in a child
-              process: no error key, a positive step and e2e rate over an
-              epoch of several batches, the unpaired step's launches per
-              step; its JSON line and the
+              vae_cyclegan_tpu_torch.bench`` at its defaults (its step
+              through a world-1 NCCL group, ``BENCH_UNIFIED``) without the
+              loader-only phase, in a child process: no error key, a
+              positive step and e2e rate over an epoch of several batches,
+              the unpaired step's launches per step; its JSON line and the
               phase's wall time
  11. drivers: the port's entry points in process on a synthetic tree of
               768x1024 frames and its decoded-image cache (built by
@@ -125,6 +126,21 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               largest twin's gap) of f32's, every value finite; the same for the tiled configuration (K2); the
               host microseconds per call of the K1 / K3 / K4 sites through
               the custom operators (``host_cost``)
+ 13. data parallelism: a world-1 NCCL group (``parallel.mesh``); the
+              full-width bf16 paired cyclevaegan at batch 24 through
+              ``Engine(task, seed, group)``: its first step's synced
+              gradients (both optimizers) and metrics bit for bit the
+              local ones, its launches those of the plain step (46 / 0 /
+              12 / 14 / 18), its metrics within the range of three plain
+              runs from the same state widened by their largest pairwise
+              gap, its parameters within one Adam step; step medians (5
+              after 2 warm-ups) in turns plain, world 1, world 1, plain,
+              each with its peak memory, and the sync's time per step
+              (CUDA events); then two spawned gloo ranks on the one card
+              (2 samples each, one step): their metrics the mean of this
+              process's plain step on each rank's samples (rtol 2e-3),
+              their parameters within one Adam step of the world-1 step on
+              all 4, the ranks bit for bit equal
 
 Each main path (the serving requests, each training run) is driven with
 every launch count set to 0 just before it and read just after it. Any
@@ -188,6 +204,7 @@ from vae_cyclegan_tpu_torch.ops.instance_norm import (
 )
 from vae_cyclegan_tpu_torch.ops.padding import reflect_pad
 from vae_cyclegan_tpu_torch.ops.reflect_conv import reflect_conv
+from vae_cyclegan_tpu_torch.parallel import dp, mesh
 from vae_cyclegan_tpu_torch.ops.starved_conv import (
     dw_cuda,
     dw_reference,
@@ -1839,10 +1856,13 @@ def _augment_on_the_card(root: Path) -> None:
 
 def _bench_child(card: str) -> dict:
     """``python -m vae_cyclegan_tpu_torch.bench`` at its defaults in a child
-    process; its JSON line, held to: no error key, a positive step and e2e
-    rate, an e2e epoch of several batches, the unpaired step's launches per
-    step."""
+    process, but for the loader-only phase (``BENCH_LOADER_ONLY=0``: the
+    host's decode capability, no device in the loop, and ~1 min of this
+    script's time limit on a busy host); its JSON line, held to: no error
+    key, a positive step and e2e rate, an e2e epoch of several batches, the
+    unpaired step's launches per step, the world-1 group it ran through."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env["BENCH_LOADER_ONLY"] = "0"
     proc = subprocess.run(
         [sys.executable, "-m", "vae_cyclegan_tpu_torch.bench"],
         capture_output=True, text=True, timeout=BENCH_TIMEOUT, env=env,
@@ -1866,6 +1886,8 @@ def _bench_child(card: str) -> dict:
             f"bench launches_per_step {out['launches_per_step']}, expected "
             f"{bench.UNPAIRED_STEP_LAUNCHES}")
     require(out["device"] == card, f"bench device {out['device']}")
+    require(out["unified"] == {"backend": "nccl", "world_size": 1},
+            f"bench unified {out['unified']}")
     return out
 
 
@@ -2590,6 +2612,270 @@ def phase_export_remat_trajectory(card: str) -> None:
         f"{time.perf_counter() - t0:.1f} s [{card}]")
 
 
+# Phase 13, data parallelism. The world-1 NCCL phase: bench.py's batch, the
+# paired cyclevaegan at full width; plain runs of its first step from one
+# state, whose spread the world-1 step must stay within; timed blocks of
+# DP_STEPS steps after DP_WARMUP, in turns plain, world 1, world 1, plain.
+DP_BATCH = 24
+DP_PLAIN_RUNS = 3
+DP_WARMUP, DP_STEPS = 2, 5
+# the two-rank phase: two gloo ranks on the one card, 2 samples each
+DP2_BATCH = 4
+
+
+def _dp_state(task) -> dict:
+    """The task's parameters and buffers, copied (its Adams are fresh)."""
+    return {k: v.detach().clone() for k, v in task.state_dict().items()}
+
+
+def _dp_restore(task, state: dict) -> None:
+    task.load_state_dict(state)
+    for opt in task.optimizers().values():
+        opt.state.clear()
+
+
+def _dp_step(engine, task, state, batch, eps) -> tuple:
+    """(metrics, parameters and buffers) of the first step from `state`."""
+    _dp_restore(task, state)
+    metrics = _finite_metrics(engine.train_step(batch, eps=eps))
+    require(metrics["nan_detected"] == 0.0, "data parallel: step skipped")
+    return metrics, {k: v.detach().float().cpu().clone()
+                     for k, v in task.state_dict().items()}
+
+
+def _dp_gaps(a: tuple, b: tuple) -> tuple:
+    """(per metric |a - b|, the largest parameter or buffer difference)."""
+    metric = {k: abs(a[0][k] - b[0][k]) for k in a[0]}
+    param = max(float((a[1][k] - b[1][k]).abs().max()) for k in a[1])
+    return metric, param
+
+
+class _SyncProbe:
+    """dp.sync while installed: every call's time on the card (CUDA events
+    around the flatten, the all_reduce and the views) and, with `compare`,
+    its inputs against its outputs bit for bit (at world 1 the mean of one
+    rank is the rank's own)."""
+
+    def __init__(self, compare: bool = True):
+        self.calls = []
+        self.equal = True
+        self.compare = compare
+        self.orig = dp.sync
+
+    def __call__(self, tensors):
+        tensors = list(tensors)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.orig(tensors)
+        end.record()
+        if self.compare:
+            self.equal &= all(torch.equal(a.detach(), b)
+                              for a, b in zip(tensors, out))
+        self.calls.append((sum(t.numel() for t in tensors), start, end))
+        return out
+
+    def __enter__(self):
+        dp.sync = self
+        return self
+
+    def __exit__(self, *exc):
+        dp.sync = self.orig
+
+    def per_step_ms(self, steps: int) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for _, s, e in self.calls) / steps
+
+
+def _dp_time(engine, batch, label: str, card: str) -> tuple:
+    """(median ms of DP_STEPS steps after DP_WARMUP, peak MiB)."""
+    for _ in range(DP_WARMUP):
+        engine.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    for _ in range(DP_STEPS):
+        t0 = time.perf_counter()
+        vals = _finite_metrics(engine.train_step(batch))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        require(vals["nan_detected"] == 0.0, f"{label}: timed step skipped")
+    med = float(np.median(lat))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    say(f"time train_step data parallel {label} batch {DP_BATCH} bf16: "
+        f"median {med:.2f} ms of {len(lat)} (min {min(lat):.2f}, max "
+        f"{max(lat):.2f}), peak memory {peak:.0f} MiB [{card}]")
+    return med, peak
+
+
+def _dp2_rank(rank: int, init: str, inputs: str, out: str) -> None:
+    """One of two gloo ranks on the one card (phase 13's child)."""
+    import torch.distributed as tdist
+
+    tdist.init_process_group("gloo", init_method=init, rank=rank,
+                             world_size=2)
+    try:
+        torch.cuda.set_device(0)
+        data = torch.load(inputs, weights_only=False)
+        task = _task(torch.bfloat16, DEV)
+        task.load_state_dict(data["state"])
+        engine = Engine(task, seed=0, group=tdist.group.WORLD)
+        lo, hi = mesh.shard_rows(DP2_BATCH, rank, 2)
+        metrics = engine.train_step(
+            {k: v[lo:hi].to(DEV) for k, v in data["batch"].items()},
+            eps=[e[lo:hi] for e in data["eps"]])
+        torch.save({"metrics": {k: float(v) for k, v in metrics.items()},
+                    "state": {k: v.detach().cpu() for k, v in
+                              task.state_dict().items()}},
+                   Path(out) / f"rank{rank}.pt")
+    finally:
+        tdist.destroy_process_group()
+
+
+def _phase_two_ranks(card: str, task, state: dict) -> None:
+    """Two spawned gloo ranks on cuda:0, one step at a global batch of
+    DP2_BATCH, 2 samples a rank. Every metric of a step is taken before its
+    updates, so the ranks' meaned metrics must be the mean of this
+    process's plain step on each rank's 2 samples (the same shapes, so the
+    same kernels and algorithms: within rounding of the mean, bar
+    STEP_METRIC_RTOL); their update is held against this process's world-1
+    step on the 4 samples (one Adam step: at bf16 and another batch shape
+    the gradients differ beyond rounding, so a batch of 4 is no bit-level
+    reference); the ranks' parameters and buffers bit for bit equal."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(60)
+    batch = {k: torch.as_tensor(_images(DP2_BATCH, 61 + i))
+             for i, k in enumerate(("x", "y"))}
+    eps = [rng.randn(DP2_BATCH, IMAGE // 16, IMAGE // 16, LATENT).astype(
+        np.float32) for _ in task.train_passes]
+    plain = Engine(task, seed=0)
+    shards = []
+    for r in range(2):
+        lo, hi = mesh.shard_rows(DP2_BATCH, r, 2)
+        shards.append(_dp_step(plain, task, state, {
+            k: v[lo:hi].to(DEV) for k, v in batch.items()},
+            [e[lo:hi] for e in eps])[0])
+    want = {k: (shards[0][k] + shards[1][k]) / 2 for k in shards[0]}
+    world1 = _dp_step(Engine(task, seed=0,
+                             group=torch.distributed.group.WORLD),
+                      task, state, {k: v.to(DEV) for k, v in batch.items()},
+                      eps)
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = str(Path(tmp) / "inputs.pt")
+        torch.save({"state": state, "batch": batch, "eps": eps}, inputs)
+        mp.start_processes(
+            _dp2_rank, args=(f"tcp://127.0.0.1:{mesh.free_port()}", inputs,
+                             tmp), nprocs=2, start_method="spawn")
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+    same = all(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k])
+               for k in ranks[0]["state"])
+    require(same, "two ranks: parameters and buffers differ across ranks")
+    got = ranks[0]["metrics"]
+    worst = max(abs(got[k] - v) / (abs(v) + 1e-3) for k, v in want.items())
+    ok = set(got) == set(want) and all(
+        abs(got[k] - v) <= STEP_METRIC_RTOL * abs(v) + 1e-5
+        for k, v in want.items())
+    w1 = max(abs(got[k] - v) / (abs(v) + 1e-3) for k, v in world1[0].items())
+    lr = task.oc.lr
+    par = max(float((ranks[0]["state"][k].float() - v).abs().max())
+              for k, v in world1[1].items() if not k.endswith(("_u", "_v")))
+    say(f"check two gloo ranks on one card (cyclevaegan bf16, global batch "
+        f"{DP2_BATCH}, 2 a rank): metrics vs the mean of the plain step on "
+        f"each rank's samples max relative error {worst:.3e} (rtol "
+        f"{STEP_METRIC_RTOL:g}, atol 1e-5) {'ok' if ok else 'FAIL'} (vs "
+        f"world 1 on all {DP2_BATCH}: {w1:.3e}); parameters vs world 1 "
+        f"max_abs_err {par:.3e} = {par / lr:.3f} lr (bound 2 lr + 1e-6); "
+        f"ranks bit for bit equal; {time.perf_counter() - t0:.1f} s [{card}]")
+    require(ok, f"two ranks vs the shards' plain steps: {got} vs {want}")
+    require(par <= 2 * lr + 1e-6, "two ranks vs world 1 parameters")
+
+
+def phase_data_parallel(card: str) -> None:
+    """Phase 13: (a) the world-1 NCCL group on the card: the synced
+    gradients of a full-width batch-24 cyclevaegan step bit for bit the
+    local ones, its launches those of the plain step, its first step within
+    the plain step's run-to-run spread (DP_PLAIN_RUNS runs from one state:
+    each metric within the plain runs' range widened by their largest
+    pairwise gap, the parameters within one Adam step), the sync's cost per
+    step (CUDA events) and the step's median and peak memory beside the
+    plain step's; (b) two gloo ranks on the one card against world 1."""
+    t0 = time.perf_counter()
+    mesh.make_group(1, DEV, 0, f"tcp://127.0.0.1:{mesh.free_port()}")
+    try:
+        say(f"data parallel: world-1 group, backend "
+            f"{torch.distributed.get_backend()}")
+        task = _task(torch.bfloat16, DEV)
+        state = _dp_state(task)
+        rng = np.random.RandomState(50)
+        batch = {"x": torch.as_tensor(_images(DP_BATCH, 51), device=DEV),
+                 "y": torch.as_tensor(_images(DP_BATCH, 52), device=DEV)}
+        eps = [rng.randn(DP_BATCH, IMAGE // 16, IMAGE // 16, LATENT).astype(
+            np.float32) for _ in task.train_passes]
+        plain = Engine(task, seed=0)
+        unified = Engine(task, seed=0, group=torch.distributed.group.WORLD)
+        runs = [_dp_step(plain, task, state, batch, eps)
+                for _ in range(DP_PLAIN_RUNS)]
+        # the main path of this phase: the counts cover exactly this step
+        _zero_counts()
+        with _SyncProbe() as probe:
+            got = _dp_step(unified, task, state, batch, eps)
+        per = _counts()
+        require(per == STEP_LAUNCHES, f"world-1 step: {per} launches of "
+                f"{KERNEL_NAMES}, expected {STEP_LAUNCHES}")
+        _no_experiment_launches("world-1 step")
+        values = sorted(n for n, _, _ in probe.calls)
+        say(f"check world-1 step: {len(probe.calls)} syncs of {values} "
+            f"values; synced == local bit for bit: {probe.equal}; launches "
+            f"{per} ok")
+        require(probe.equal, "world-1 sync changed a gradient")
+        require(len(probe.calls) == 3, "world-1 step: expected a sync per "
+                "optimizer and one of the metrics")
+        pairs = [_dp_gaps(a, b) for i, a in enumerate(runs)
+                 for b in runs[i + 1:]]
+        spread = {k: max(m[k] for m, _ in pairs) for k in got[0]}
+        spread_par = max(p for _, p in pairs)
+        bad = [k for k, v in got[0].items()
+               if not (min(r[0][k] for r in runs) - spread[k] <= v
+                       <= max(r[0][k] for r in runs) + spread[k])]
+        _, par = _dp_gaps(got, runs[0])
+        lr = task.oc.lr
+        rel = {k: spread[k] / (abs(runs[0][0][k]) + 1e-3) for k in spread}
+        say(f"check world-1 step vs {DP_PLAIN_RUNS} plain runs from one "
+            f"state (batch {DP_BATCH}, bf16): plain spread G_loss "
+            f"{rel['G_loss']:.3e}, D_loss {rel['D_loss']:.3e} relative, "
+            f"largest metric {max(rel.values()):.3e}, parameters "
+            f"{spread_par:.3e}; world-1 metrics outside the spread: {bad}; "
+            f"parameters vs plain run 1 {par:.3e} = {par / lr:.3f} lr "
+            f"(bound 2 lr + 1e-6)")
+        require(not bad, f"world-1 step outside the plain spread: {bad}")
+        require(par <= 2 * lr + 1e-6, "world-1 step parameters")
+        times = {}
+        for label in ("plain", "world 1", "world 1 again", "plain again"):
+            engine = plain if label.startswith("plain") else unified
+            with _SyncProbe(compare=False) as probe:
+                med, peak = _dp_time(engine, batch, label, card)
+                sync = probe.per_step_ms(DP_WARMUP + DP_STEPS)
+            times[label] = (med, peak, sync)
+        say(f"data parallel world 1 vs plain, batch {DP_BATCH}: step median "
+            f"{times['world 1'][0]:.2f} / {times['world 1 again'][0]:.2f} "
+            f"ms vs {times['plain'][0]:.2f} / {times['plain again'][0]:.2f}; "
+            f"sync (flatten + all_reduce + views, both optimizers and the "
+            f"metrics) {times['world 1'][2]:.3f} / "
+            f"{times['world 1 again'][2]:.3f} ms per step; peak memory "
+            f"{times['world 1'][1]:.0f} vs {times['plain'][1]:.0f} MiB "
+            f"[{card}]")
+        del plain, unified, runs, batch
+        torch.cuda.empty_cache()
+        _phase_two_ranks(card, task, state)
+    finally:
+        mesh.destroy()
+    say(f"phase 13 (data parallelism): {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
@@ -2619,6 +2905,8 @@ def main() -> None:
     phase_drivers(card)
     torch.cuda.empty_cache()
     phase_export_remat_trajectory(card)
+    torch.cuda.empty_cache()
+    phase_data_parallel(card)
     # the kernels line: which phase drives each kernel. K1 (in_act), K3
     # (starved_conv, starved_conv_zero_same) and K4 (starved_conv_dw): the
     # serving and training paths (phases 4, 5, 7), the engine (10) and the

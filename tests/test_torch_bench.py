@@ -36,7 +36,7 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline",
               "step_time_ms_p95", "e2e_loader_images_per_sec",
               "e2e_breakdown", "e2e_config", "loader_only_images_per_sec",
               "h2d_bandwidth_mb_s"}
-PORT_KEYS = {"device", "syncs_per_step", "launches_per_step",
+PORT_KEYS = {"device", "syncs_per_step", "launches_per_step", "unified",
              "h2d_pinned_mb_s", "h2d_pageable_mb_s"}
 PHASE_KEYS = {"host_ms_per_batch", "h2d_wait_ms_per_batch",
               "dispatch_ms_per_batch", "final_sync_ms", "window_ms_per_batch"}
@@ -83,6 +83,7 @@ def test_bench_on_the_cpu_prints_one_json_line():
     assert set(out["loader_only_images_per_sec"]) == {"1", "1_raw"}
     assert all(v > 0 for v in out["loader_only_images_per_sec"].values())
     assert out["h2d_bandwidth_mb_s"] is None
+    assert out["unified"] == {"backend": "gloo", "world_size": 1}
 
 
 @pytest.mark.parametrize("arch,reads", [("cyclevaegan", 2),
@@ -114,6 +115,21 @@ def test_unported_switch_fails_the_bench(switch):
     assert len(lines) == 1
     assert lines[0]["metric"] == "bench_error" and lines[0]["value"] == 0.0
     assert switch in lines[0]["error"]
+
+
+@pytest.mark.parametrize("unified,want", [
+    ("1", {"backend": "gloo", "world_size": 1}), ("0", None)])
+def test_bench_unified_runs_a_world_1_group(unified, want):
+    """BENCH_UNIFIED=1 (bench.py's default) runs the step through a world-1
+    process group (gloo on the CPU, NCCL on the card): the data-parallel
+    path, with its all_reduce per optimizer; 0 the plain step. The line
+    says which."""
+    rc, lines, err = run_bench({**TINY, "BENCH_ARCH": "autoencoder",
+                                "BENCH_UNIFIED": unified, "BENCH_TRACE": "0",
+                                "BENCH_E2E": "0", "BENCH_LOADER_ONLY": "0"})
+    assert rc == 0, err
+    assert lines[0]["unified"] == want
+    assert lines[0]["value"] > 0 and lines[0]["syncs_per_step"] == 1
 
 
 def test_bench_without_a_card_fails():

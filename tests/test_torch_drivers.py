@@ -2,8 +2,13 @@
 ``.test``, against the JAX package's train.py and test.py.
 
 * Flag surface: every flag of JAX's train parser and test.py's parser, with
-  the same defaults; the flags that queue 1's items 7 and 10 leave refused
+  the same defaults; the flags that queue 1's items 7c and 10 leave refused
   raise with the item named; the card is the default device.
+* Data parallelism: ``--num_devices 2`` on the CPU (two gloo ranks) trains
+  an epoch with the primary rank alone writing the run directory;
+  ``--multihost`` without the launcher's environment raises, naming what is
+  missing, before writing anything (tests/test_torch_multihost.py runs it
+  from a torchrun-style environment).
 * A fresh run on the CPU (2 epochs of 2 batches): train.py's run-directory
   layout and TensorBoard tags, and ``args.json`` equal to what JAX's driver
   writes for the same argv.
@@ -100,8 +105,7 @@ def test_test_flag_surface_matches_jax():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--num_devices", "2"], "item 7"), (["--spatial", "2"], "item 7"),
-    (["--multihost"], "item 7"), (["--no_pallas"], "item 10")])
+    (["--spatial", "2"], "item 7c"), (["--no_pallas"], "item 10")])
 def test_train_refuses_unported_flags(flags, item, data_root, tmp_path):
     args = port_train.build_parser().parse_args(
         ["--platform", "cpu", "--architecture", "cyclevaegan", "--data_dir",
@@ -109,6 +113,37 @@ def test_train_refuses_unported_flags(flags, item, data_root, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         port_train.main(args)
     assert not list(tmp_path.iterdir())  # refused before the run directory
+
+
+def test_train_num_devices_2_on_the_cpu(data_root, tmp_path):
+    """--platform cpu --num_devices 2: two spawned gloo ranks train one
+    epoch of two global batches (one sample a rank) and validate; the run
+    directory is the one-process run's layout, written once (one
+    TensorBoard event file: the other rank opens no writer)."""
+    argv = _argv(data_root, tmp_path, 1, "vae", "--num_devices", "2")
+    run_dir = port_train.main(port_train.build_parser().parse_args(argv))
+    assert [p.name for p in tmp_path.iterdir()] == [run_dir.name]
+    assert sorted(p.name for p in run_dir.iterdir()) == [
+        "args.json", "best_model", "checkpoint_epoch_1", "tensorboard"]
+    assert len(list((run_dir / "tensorboard").glob("events.out.*"))) == 1
+    assert json.loads((run_dir / "args.json").read_text())["num_devices"] == 2
+    meta = json.loads((run_dir / "checkpoint_epoch_1" / "meta.json")
+                      .read_text())
+    assert meta["epoch"] == 0 and np.isfinite(meta["loss"])
+    scalars, _ = _tags(run_dir)
+    assert scalars["Loss/train"] == [0] and scalars["Loss/test"] == [0]
+
+
+def test_train_multihost_needs_the_launcher_environment(data_root, tmp_path,
+                                                         monkeypatch):
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    args = port_train.build_parser().parse_args(
+        _argv(data_root, tmp_path, 1, "vae", "--multihost"))
+    with pytest.raises(RuntimeError, match="torchrun"):
+        port_train.main(args)
+    assert not list(tmp_path.iterdir())
 
 
 def test_drivers_run_on_the_card_by_default(data_root, tmp_path):

@@ -16,10 +16,14 @@ BENCH_IMAGE_SIZE (256), BENCH_PHASE (all | e2e | loader), BENCH_E2E_MODE
 (host | device), BENCH_E2E_STEPS (12), BENCH_LOADER_STEPS (24),
 BENCH_LOADER_WORKERS (1,4), BENCH_TRACE, BENCH_E2E and BENCH_LOADER_ONLY
 (1; 0 skips that part), BENCH_REMAT (1 rematerializes the generator
-passes, ``ModelConfig.remat``). BENCH_DEVICE (cuda) names the torch device;
-the tests set it to cpu. ``bench.py``'s BENCH_SPATIAL and BENCH_UNIFIED
-have no counterpart in the port yet (ROADMAP.md queue 1, item 7, and the
-JAX engine's lowering), and BENCH_NO_PALLAS has none by design (item 10: no
+passes, ``ModelConfig.remat``), BENCH_UNIFIED (1, the default, as in
+``bench.py``: the step runs through a world-1 process group, NCCL on the
+card and gloo on the CPU, the same code an N-rank data-parallel run takes:
+the gradient mean's one all_reduce per optimizer and the metrics' mean; 0
+runs the plain step without a group; the line's ``unified`` says which).
+BENCH_DEVICE (cuda) names the torch device; the tests set it to cpu.
+``bench.py``'s BENCH_SPATIAL has no counterpart in the port yet (ROADMAP.md
+queue 1, item 7c), and BENCH_NO_PALLAS has none by design (item 10: no
 switch turns the kernels off, and no caller of the port needs a plain-only
 mode): if one is set, the bench fails.
 
@@ -45,11 +49,14 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
+
+from vae_cyclegan_tpu_torch.parallel import mesh
 
 REFERENCE_CPU_IMAGES_PER_SEC = 0.04589  # cyclevaegan, measured (BASELINE.md)
 ROOT = Path(__file__).resolve().parents[1]
 #: bench.py's switches that the port does not have
-UNPORTED = ("BENCH_SPATIAL", "BENCH_NO_PALLAS", "BENCH_UNIFIED")
+UNPORTED = ("BENCH_SPATIAL", "BENCH_NO_PALLAS")
 #: kernel launches of one unpaired cyclevaegan train_step at 256x256, base
 #: 64, bf16, "auto" IN (tests/test_torch_bench.py holds them to the step's
 #: kernel sites): K1, K3 reflect, K3 zero_same, K4
@@ -196,7 +203,12 @@ def main() -> None:
     # the BASELINE config #5: unpaired summer2winter-style full dual cycle
     task = create_task(arch, model=mc, paired=False, device=dev)
     task.init(0)
-    engine = Engine(task, seed=0)
+    unified = None
+    if os.environ.get("BENCH_UNIFIED", "1") != "0":
+        mesh.make_group(1, dev, 0, f"tcp://127.0.0.1:{mesh.free_port()}")
+        unified = {"backend": dist.get_backend(), "world_size": 1}
+    engine = Engine(task, seed=0,
+                    group=None if unified is None else dist.group.WORLD)
 
     if phase == "e2e":
         e2e = _bench_e2e(engine, batch, image_size)
@@ -204,6 +216,7 @@ def main() -> None:
             "e2e_loader_images_per_sec": e2e.pop("images_per_sec"),
             "e2e_batches_per_epoch": e2e.pop("batches_per_epoch"),
             "e2e_breakdown": e2e}))
+        mesh.destroy()
         return
 
     gen = torch.Generator(dev).manual_seed(0)
@@ -249,6 +262,7 @@ def main() -> None:
         "syncs_per_step": syncs,
         "launches_per_step": launches,
         "remat": mc.remat,
+        "unified": unified,
     }
     if os.environ.get("BENCH_TRACE", "1") != "0":
         try:
@@ -275,6 +289,7 @@ def main() -> None:
             result.update(_run_phase_subprocess("loader"))
         except Exception as e:  # noqa: BLE001
             result["loader_only_error"] = f"{type(e).__name__}: {e}"
+    mesh.destroy()
     print(json.dumps(result))
 
 

@@ -11,11 +11,22 @@ Randomness: the loader owns one `random.Random` per epoch seeded by
 thread scheduling.
 
 Counterpart of ``vae_cyclegan_tpu/data/loader.py``, the same code: the
-same seeds give the same batches, byte for byte. Two differences: the
+same seeds give the same batches, byte for byte. Three differences: the
 process pool starts its workers with ``spawn``, not ``fork`` (the process
 that trains has threads: the engine's copy thread, the CUDA runtime's), and
 hands each worker the attached decode cache's path to attach again; and
-there is no ``device_put`` hook (the engine's ``_put`` places batches).
+there is no ``device_put`` hook (the engine's ``_put`` places batches);
+and sharded loaders take a rule for a global batch the shards do not divide
+(``ragged``):
+
+  * ``"drop"`` (the default; JAX's multi-host rule, ``--multihost``): the
+    batch size must divide ``shard_count``, and a partial final batch is
+    dropped on every rank;
+  * ``"replicate"`` (JAX's single-host rule, ``--num_devices``): a global
+    batch that divides ``shard_count`` is split into equal contiguous
+    shards, and one that does not is given whole to every rank, with one
+    warning (``parallel.mesh.shard_rows``); ``replicated_batches()`` says
+    which batches of an epoch those are, for the engine.
 """
 
 from __future__ import annotations
@@ -64,11 +75,17 @@ class DataLoader:
         use_processes: bool = False,
         shard_index: int = 0,
         shard_count: int = 1,
+        ragged: str = "drop",
     ):
         """shard_index/shard_count: data parallelism over processes —
         every process builds the SAME global batch order (same seed/epoch)
         and takes its contiguous slice of each global batch, so the slices
-        of one step make up one consistent global batch."""
+        of one step make up one consistent global batch. `ragged`: "drop"
+        or "replicate" (the module docstring)."""
+        if ragged not in ("drop", "replicate"):
+            raise ValueError(f"ragged must be 'drop' or 'replicate', got "
+                             f"{ragged!r}")
+        self.ragged = ragged
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -77,7 +94,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.use_processes = use_processes
-        if batch_size % shard_count != 0:
+        if ragged == "drop" and batch_size % shard_count != 0:
             raise ValueError(
                 f"batch_size {batch_size} not divisible by shard_count "
                 f"{shard_count}"
@@ -117,6 +134,18 @@ class DataLoader:
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+    def replicated_batches(self):
+        """Per batch of an epoch, whether every rank gets it whole (the
+        "replicate" rule, a global batch the shards do not divide); the
+        same every epoch: shuffling moves samples, not batch sizes."""
+        n = len(self.dataset)
+        sizes = [min(self.batch_size, n - i)
+                 for i in range(0, n, self.batch_size)]
+        if self.drop_last or (self.shard_count > 1 and self.ragged == "drop"):
+            sizes = [b for b in sizes if b == self.batch_size]
+        return [self.shard_count > 1 and b % self.shard_count != 0
+                for b in sizes]
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -171,7 +200,13 @@ class DataLoader:
             positioned.append([(pos + j, ix) for j, ix in enumerate(b)])
             pos += len(b)
         batches = positioned
-        if self.shard_count > 1:
+        if self.shard_count > 1 and self.ragged == "replicate":
+            from vae_cyclegan_tpu_torch.parallel.mesh import shard_rows
+
+            spans = [shard_rows(len(b), self.shard_index, self.shard_count)
+                     for b in batches]
+            batches = [b[lo:hi] for b, (lo, hi) in zip(batches, spans)]
+        elif self.shard_count > 1:
             # every host slices the same global batch; partial final batches
             # are dropped (they can't be split evenly across hosts)
             batches = [b for b in batches if len(b) == self.batch_size]

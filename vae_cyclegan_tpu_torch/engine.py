@@ -17,13 +17,27 @@ state is threaded). It replaces the reference's train_epoch/validate
 
 The task itself still reads its loss on the host once per optimizer (the
 finite-loss guard, ``models/tasks/base.py``), so a step is not free of
-syncs. The JAX engine's mesh and shard_map (data parallelism) have no
-counterpart yet. The engine runs on ``task.device``: the card by default,
-and a task there raises without CUDA.
+syncs. The engine runs on ``task.device``: the card by default, and a task
+there raises without CUDA.
+
+Data parallelism (JAX's shard_map over a 'data' mesh): ``Engine(task,
+seed, group)`` with a process group (``parallel.mesh``) runs each step on
+this rank's shard under ``parallel.dp.dp_scope``, so the task means (loss,
+gradients) across the ranks in its finite gate and draws its noise as the
+global batch's rows. Each step's metrics are meaned across the ranks (one
+small all_reduce, JAX's pmean of the metrics); ``eval_step``'s and
+``generate``'s images are gathered to the global batch in rank order.
+Batches are the rank's shards (the loader's ``shard_index`` /
+``shard_count``); a batch given whole to every rank (a global batch that
+does not divide the group, ``parallel.mesh.shard_rows``) runs replicated:
+``replicated=True``, which the epoch loops read from the loader's
+``replicated_batches()``. Spatial parallelism (ROADMAP.md queue 1, item
+7c) has no counterpart yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -31,9 +45,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vae_cyclegan_tpu_torch.data.device_aug import augment_batch
 from vae_cyclegan_tpu_torch.models.tasks.base import Task
+from vae_cyclegan_tpu_torch.parallel import dp
 
 try:
     from tqdm import tqdm
@@ -58,6 +74,15 @@ def _to_float_image(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().cpu().numpy()
 
 
+def _replicated_batches(loader) -> Callable[[int], bool]:
+    """Batch index -> whether the loader gives that batch whole to every
+    rank (``DataLoader.replicated_batches``); a loader without the method
+    yields shards only."""
+    flags = getattr(loader, "replicated_batches", None)
+    flags = flags() if flags is not None else []
+    return lambda i: i < len(flags) and bool(flags[i])
+
+
 def noise_seed(seed: int, epoch: int, index: int) -> int:
     """The seed of a validation batch's noise generator, from (seed, epoch,
     batch index) by explicit arithmetic."""
@@ -69,11 +94,15 @@ class Engine:
     and the epoch loops of one task.
 
     ``seed`` seeds the generator the training steps draw their noise from
-    and, with the epoch and the batch index, each validation batch's.
+    and, with the epoch and the batch index, each validation batch's; every
+    rank of `group` seeds them alike. `group`: a ``torch.distributed``
+    process group to run data-parallel over, or None for the plain step.
     """
 
-    def __init__(self, task: Task, seed: int = 0):
+    def __init__(self, task: Task, seed: int = 0, group=None):
         self.task = task
+        self.group = group
+        self.world = 1 if group is None else dist.get_world_size(group)
         self.device = task.device
         self.out_size = task.mc.image_size
         self.seed = seed
@@ -110,23 +139,43 @@ class Engine:
 
     # -- steps ----------------------------------------------------------------
 
+    def _scope(self, replicated: bool):
+        """The data-parallel scope of one step (none without a group)."""
+        if self.group is None:
+            return contextlib.nullcontext()
+        return dp.dp_scope(self.group, replicated)
+
+    @staticmethod
+    def _mean(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The metrics meaned across the ranks (within a scope)."""
+        return dict(zip(metrics, dp.sync(list(metrics.values()))))
+
     def train_step(self, batch: Dict[str, torch.Tensor],
-                   eps: Optional[List] = None) -> Dict[str, torch.Tensor]:
-        return self.task.train_step(self._prep(batch), eps=eps,
-                                    generator=self.generator)
+                   eps: Optional[List] = None,
+                   replicated: bool = False) -> Dict[str, torch.Tensor]:
+        """One step on this rank's shard `batch` (`eps`: its noise, this
+        rank's rows); `replicated` where the batch is the whole global
+        batch on every rank."""
+        with self._scope(replicated):
+            return self._mean(self.task.train_step(
+                self._prep(batch), eps=eps, generator=self.generator))
 
     def eval_step(self, batch: Dict[str, torch.Tensor],
                   eps: Optional[List] = None,
-                  generator: Optional[torch.Generator] = None
-                  ) -> Dict[str, torch.Tensor]:
-        return self.task.eval_step(self._prep(batch), eps=eps,
-                                   generator=generator)
+                  generator: Optional[torch.Generator] = None,
+                  replicated: bool = False) -> Dict[str, torch.Tensor]:
+        with self._scope(replicated):
+            m = dict(self.task.eval_step(self._prep(batch), eps=eps,
+                                         generator=generator))
+            images = {k: dp.gather(m.pop(k)) for k in ("Gx", "Fy") if k in m}
+            return {**self._mean(m), **images}
 
     def generate(self, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None,
-                 eps=None) -> torch.Tensor:
-        return self.task.generate(self._prep(batch), generator=generator,
-                                  eps=eps)
+                 eps=None, replicated: bool = False) -> torch.Tensor:
+        with self._scope(replicated):
+            return dp.gather(self.task.generate(
+                self._prep(batch), generator=generator, eps=eps))
 
     # -- epochs ---------------------------------------------------------------
 
@@ -141,9 +190,11 @@ class Engine:
         """Returns (avg_G_loss, avg_metric_components, last_batch).
 
         `should_stop`: optional zero-arg callable polled once per step
-        (after the step); returning True ends the epoch early with the
-        partial averages. `eps(i)`: the noise of step i, where the caller
-        injects it. `epoch` is accepted for the JAX engine's signature.
+        (after the step; in a group it must agree across the ranks, as
+        ``utils.preempt.AgreedStop`` does); returning True ends the epoch
+        early with the partial averages. `eps(i)`: the noise of step i,
+        where the caller injects it. `epoch` is accepted for the JAX
+        engine's signature.
         ``images_per_sec`` counts from the first batch's request to the
         metrics' fetch. ``self.epoch_phases`` then holds where the epoch's
         host time went, in ms: per batch blocked on the loader (``host``),
@@ -169,6 +220,7 @@ class Engine:
         # thread.
         put_pool = ThreadPoolExecutor(1)
         host = h2d_wait = dispatch = 0.0
+        replicated = _replicated_batches(loader)
         try:
             _it = iter(it)
             batch = next(_it, None)
@@ -179,8 +231,10 @@ class Engine:
                 ta = time.perf_counter()
                 device_batch = put_fut.result()
                 tb = time.perf_counter()
+                rep = replicated(n_batches)
                 metrics = self.train_step(
-                    device_batch, eps=None if eps is None else eps(n_batches))
+                    device_batch, eps=None if eps is None else eps(n_batches),
+                    replicated=rep)
                 tc = time.perf_counter()
                 nxt = next(_it, None)
                 host += time.perf_counter() - tc
@@ -189,7 +243,8 @@ class Engine:
                 put_fut = (put_pool.submit(self._put, nxt)
                            if nxt is not None else None)
                 n_batches += 1
-                n_images += next(iter(batch.values())).shape[0]
+                n_images += next(iter(batch.values())).shape[0] * (
+                    1 if rep else self.world)
                 for k, v in metrics.items():
                     metric_sums[k] = (v if k not in metric_sums
                                       else metric_sums[k] + v)
@@ -245,26 +300,33 @@ class Engine:
         """
         metric_sums: Dict[str, torch.Tensor] = {}
         n_batches = 0
-        last_Gx = last_Fy = last_x = last_y = None
+        last_Gx = last_Fy = last_batch = None
+        last_rep = False
+        replicated = _replicated_batches(loader)
         it = tqdm(loader, desc="Validation") if progress else loader
         for batch in it:
             device_batch = self._put(batch)
             gen = torch.Generator(self.device).manual_seed(
                 noise_seed(self.seed, epoch, n_batches))
+            last_rep = replicated(n_batches)
             metrics = dict(self.eval_step(
                 device_batch, eps=None if eps is None else eps(n_batches),
-                generator=gen))
+                generator=gen, replicated=last_rep))
             last_Gx = metrics.pop("Gx")
             last_Fy = metrics.pop("Fy", None)
-            # raw (on-device-aug) batches have no host-side x/y images
-            last_x = device_batch.get("x")
-            last_y = device_batch.get("y")
+            last_batch = device_batch
             n_batches += 1
             for k, v in metrics.items():
                 metric_sums[k] = v if k not in metric_sums else metric_sums[k] + v
         if n_batches == 0:
             return float("nan"), {}, None, None, None, None
         avg = self._means(metric_sums, n_batches)
+        # the last batch's x/y gathered as its Gx is (raw on-device-aug
+        # batches have no host-side x/y images)
+        with self._scope(last_rep):
+            last_x, last_y = (
+                dp.gather(last_batch[k]) if k in last_batch else None
+                for k in ("x", "y"))
         return (
             avg.get("G_loss", float("nan")),
             avg,
@@ -286,7 +348,9 @@ class Engine:
 
     @staticmethod
     def _means(sums: Dict[str, torch.Tensor], n: int) -> Dict[str, float]:
-        """One host fetch of every metric sum, as means over n batches."""
+        """One host fetch of every metric sum, as means over n batches (in a
+        group, sums of metrics each step already meaned across the
+        ranks)."""
         keys = list(sums)
         fetched = torch.stack([sums[k].float() for k in keys]).cpu().tolist()
         return {k: float(v) / n for k, v in zip(keys, fetched)}

@@ -33,6 +33,7 @@ from vae_cyclegan_tpu_torch.models.blocks import (
 )
 from vae_cyclegan_tpu_torch.ops import kaiming_normal_fan_out, spectral_normalize
 from vae_cyclegan_tpu_torch.ops.starved_conv import supported
+from vae_cyclegan_tpu_torch.parallel import dp
 
 
 class Encoder(nn.Module):
@@ -111,8 +112,9 @@ class VariationalEncoderBlock(nn.Module):
 
     z is computed in float32 and cast to mu's dtype. The noise is `eps`
     (NCHW, the shape of mu) when given, else drawn from `generator` (or the
-    default generator of mu's device) — sampled in every mode, as the
-    reference does."""
+    default generator of mu's device; the global batch's draw sliced to this
+    rank's rows in a data-parallel step, ``parallel.dp.dp_normal``) —
+    sampled in every mode, as the reference does."""
 
     def __init__(self, in_channels: int, latent_dim: int = 64,
                  dtype: Optional[torch.dtype] = None, device=None):
@@ -131,8 +133,7 @@ class VariationalEncoderBlock(nn.Module):
         logvar = torch.clamp(self.logvarConv(x), -10.0, 10.0)
         std = torch.exp(0.5 * logvar.float())
         if eps is None:
-            eps = torch.randn(std.shape, generator=generator,
-                              device=std.device, dtype=torch.float32)
+            eps = dp.dp_normal(generator, std.shape, std.device)
         elif tuple(eps.shape) != tuple(std.shape):
             raise ValueError(f"eps shape {tuple(eps.shape)} != latent shape "
                              f"{tuple(std.shape)}")

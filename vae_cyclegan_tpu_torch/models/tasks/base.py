@@ -47,6 +47,7 @@ from vae_cyclegan_tpu_torch.models.networks import (
     SpectralConv,
     VariationalAutoencoderNet,
 )
+from vae_cyclegan_tpu_torch.parallel import dp, mesh
 from vae_cyclegan_tpu_torch.utils import nan_dump
 
 
@@ -128,7 +129,13 @@ class Task:
         non-finite loss the step is skipped whole (parameters, moments and
         Adam's count stay as they were) and ``dump()`` is called where
         given (``utils.nan_dump``). Returns the nan_detected flag, 1.0
-        when skipped. Reading the loss's finiteness waits for the device."""
+        when skipped. Reading the loss's finiteness waits for the device.
+
+        In a data-parallel scope (``parallel.dp``) the loss and the
+        gradients are first meaned across the ranks, in one buffer and one
+        all_reduce (JAX's pmean in its gate), so every rank takes the same
+        branch and applies the same update."""
+        loss, *grads = dp.sync([loss, *grads])
         finite = bool(torch.isfinite(loss))
         if finite:
             for p, g in zip(params, grads):
@@ -145,9 +152,10 @@ class Task:
               batch: Optional[Mapping] = None) -> float:
         """The gradient of `loss` over `params`, then ``_finite_update``;
         while NaN dumps are enabled, its skip branch dumps `batch` and the
-        parameters and gradients under their state_dict names."""
+        parameters and gradients under their state_dict names (on the
+        primary rank only, in a process group)."""
         grads = torch.autograd.grad(loss, params)
-        if not nan_dump.enabled():
+        if not nan_dump.enabled() or not mesh.is_primary():
             return self._finite_update(optimizer, loss, params, grads)
 
         def dump():
@@ -209,11 +217,10 @@ class Task:
                generator: Optional[torch.Generator]) -> torch.Tensor:
         """The noise a variational pass over the NCHW image batch `v` would
         draw from `generator`: (B, latent_dim, H/16, W/16) f32, drawn as
-        ``networks.VariationalEncoderBlock`` draws it."""
+        ``networks.VariationalEncoderBlock`` draws it (``dp.dp_normal``)."""
         n, _, h, w = v.shape
-        return torch.randn((n, self.mc.latent_dim, h // 16, w // 16),
-                           generator=generator, device=v.device,
-                           dtype=torch.float32)
+        return dp.dp_normal(generator, (n, self.mc.latent_dim, h // 16,
+                                        w // 16), v.device)
 
     def _gen(self, net: nn.Module, v: torch.Tensor,
              eps: Optional[torch.Tensor],

@@ -97,16 +97,31 @@ def bump_one_ulp(task, seed: Optional[int] = None) -> None:
         p.copy_(torch.nextafter(p, up))
 
 
+@torch.no_grad()
+def bump_one_element(task, which: int) -> str:
+    """One element of one weight tensor moved one ulp up, in place: weight
+    tensor `which` (modulo their count; tensors of ndim > 1 only, since the
+    biases start at zero), flat index `which` modulo its size. The probe of
+    ``scripts/vaegan_chaos_probe.py``. Returns the tensor's name."""
+    weights = [(n, p) for n, p in task.nets.named_parameters() if p.dim() > 1]
+    name, p = weights[which % len(weights)]
+    flat = p.view(-1)
+    i = which % flat.numel()
+    flat[i] = torch.nextafter(flat[i], flat.new_tensor(math.inf))
+    return name
+
+
 def run_trajectory(arch: str, steps: int, image_size: int, batch: int,
                    seed: int, device, dtype: torch.dtype,
                    instance_norm: str = "auto",
                    params: Optional[Mapping[str, torch.Tensor]] = None, *,
                    base_width: int = 64, latent_dim: int = 64,
-                   bump: Optional[int] = None, paired: bool = True
-                   ) -> Dict[str, object]:
+                   bump: Optional[int] = None, probe: Optional[int] = None,
+                   paired: bool = True) -> Dict[str, object]:
     """`steps` train_steps of `arch` on `device` in `dtype` from `params`
     (else ``task.init(seed)``), moved by ``bump_one_ulp`` when `bump` is
-    given (0: every parameter up; k > 0: the coins of seed k).
+    given (0: every parameter up; k > 0: the coins of seed k), or by
+    ``bump_one_element(task, probe)`` when `probe` is.
     Returns ``{"G_loss": [...], "D_loss": [...] (adversarial tasks),
     "components": {metric: [...]}, "nan_detected": [...]}``, one float per
     step."""
@@ -119,6 +134,8 @@ def run_trajectory(arch: str, steps: int, image_size: int, batch: int,
         task.load_state_dict(params, strict=True)
     if bump is not None:
         bump_one_ulp(task, bump or None)
+    if probe is not None:
+        bump_one_element(task, probe)
     batches, eps = trajectory_inputs(steps, image_size, batch, seed,
                                      latent_dim, len(task.train_passes))
     curves: Dict[str, List[float]] = {}

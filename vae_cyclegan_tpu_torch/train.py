@@ -20,21 +20,48 @@ a CUDA device the task raises. The JAX flags map as follows:
   --remat            ``ModelConfig.remat``: the generator passes
                      recomputed in the backward (``torch.utils.checkpoint``)
   --device_aug, --decode_cache, --no_nan_dump   as in the JAX driver
+  --num_devices N    data parallelism on one host: the driver spawns N
+                     ranks (start method ``spawn``), one device each
+                     (``cuda:r``; CPU ranks over gloo with --platform cpu),
+                     a ``torch.distributed`` group (``parallel.mesh``);
+                     None means every visible CUDA device (one on the CPU),
+                     and 1 runs in this process without a group. Asking
+                     for more CUDA devices than are visible raises.
+  --multihost        this process is one rank of a group ``torchrun``
+                     describes (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+                     MASTER_PORT), on ``cuda:LOCAL_RANK``
 
-Refused, each with an error naming its ROADMAP.md item: ``--num_devices``
-above 1, ``--spatial`` above 1 and ``--multihost`` (queue 1, item 7: data
-parallelism, not ported yet) and ``--no_pallas`` (item 10: no switch turns
-the port's kernels off, and no caller of the port needs a plain-only mode).
+Under either, each rank loads its slice of every global batch (the loader's
+``shard_index``/``shard_count``) and the task means (loss, gradients)
+across the ranks (``parallel.dp``). A global batch the ranks do not divide
+is given whole to every rank under --num_devices (JAX's single-host rule,
+one warning) and dropped under --multihost (JAX's multi-host rule). Only
+the primary rank (rank 0) writes: the run directory, ``args.json``,
+checkpoints, ``best_model/``, TensorBoard, NaN dumps and the profile; it
+alone shows progress bars, and the other ranks' standard output is
+silenced. Every rank reads the checkpoint it resumes from (and the
+Double* checkpoint it transfers from) itself, so the path must be readable
+on every host. A SIGTERM to any rank (to the launching process under
+--num_devices, which passes it on) stops every rank after the same step
+(``utils.preempt.AgreedStop``), and the primary saves ``checkpoint_preempt/``.
+
+Refused, each with an error naming its ROADMAP.md item: ``--spatial`` above
+1 (queue 1, item 7c: spatial parallelism, not ported yet) and
+``--no_pallas`` (item 10: no switch turns the port's kernels off, and no
+caller of the port needs a plain-only mode).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
 from datetime import datetime
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from vae_cyclegan_tpu_torch.config import LossConfig, ModelConfig, OptimConfig
 from vae_cyclegan_tpu_torch.data import (
@@ -48,6 +75,7 @@ from vae_cyclegan_tpu_torch.data import (
 )
 from vae_cyclegan_tpu_torch.engine import Engine
 from vae_cyclegan_tpu_torch.models.tasks import ARCHITECTURES, create_task
+from vae_cyclegan_tpu_torch.parallel import mesh
 from vae_cyclegan_tpu_torch.utils import (
     GracefulShutdown,
     checkpoint_exists,
@@ -57,6 +85,7 @@ from vae_cyclegan_tpu_torch.utils import (
     nan_dump,
     save_checkpoint,
 )
+from vae_cyclegan_tpu_torch.utils.preempt import AgreedStop
 from vae_cyclegan_tpu_torch.utils.tb import (
     TBWriter,
     truncate_tensorboard_events,
@@ -83,21 +112,26 @@ def device_for(platform) -> torch.device:
 def refuse_unported(args) -> None:
     """Raise on the JAX flags the port has no counterpart of yet."""
     waits = []
-    if args.num_devices is not None and args.num_devices > 1:
-        waits.append("--num_devices > 1 (ROADMAP.md queue 1, item 7: data "
-                     "parallelism)")
     if args.spatial > 1:
-        waits.append("--spatial > 1 (ROADMAP.md queue 1, item 7: spatial "
+        waits.append("--spatial > 1 (ROADMAP.md queue 1, item 7c: spatial "
                      "parallelism)")
-    if args.multihost:
-        waits.append("--multihost (ROADMAP.md queue 1, item 7: "
-                     "torch.distributed)")
     if args.no_pallas:
         waits.append("--no_pallas (ROADMAP.md queue 1, item 10: no switch "
                      "turns the port's kernels off, and no caller of the "
                      "port needs a plain-only mode)")
     if waits:
         raise NotImplementedError("not ported: " + "; ".join(waits))
+
+
+def _shard_kwargs(args) -> dict:
+    """Data parallelism: each rank loads its slice of every global batch
+    (the loader's shard_index/shard_count), with JAX's rule for a batch the
+    ranks do not divide: replicate on one host, drop across hosts."""
+    world = mesh.world_size()
+    if world == 1:
+        return {}
+    return {"shard_index": mesh.rank(), "shard_count": world,
+            "ragged": "drop" if args.multihost else "replicate"}
 
 
 def create_dataloaders_hypersim(args):
@@ -129,10 +163,11 @@ def create_dataloaders_hypersim(args):
         train_ds, test_ds = dataset, None
         print(f"Training samples: {len(train_ds)}")
     train_loader = DataLoader(train_ds, args.batch_size, shuffle=True,
-                              seed=args.seed, num_workers=args.num_workers)
+                              seed=args.seed, num_workers=args.num_workers,
+                              **_shard_kwargs(args))
     test_loader = (
         DataLoader(test_ds, args.batch_size, shuffle=False,
-                   num_workers=args.num_workers)
+                   num_workers=args.num_workers, **_shard_kwargs(args))
         if test_ds is not None and len(test_ds) > 0
         else None
     )
@@ -156,9 +191,9 @@ def create_dataloaders_maps(args):
     print(f"Testing samples: {len(test_ds)}")
     return (
         DataLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed,
-                   num_workers=args.num_workers),
+                   num_workers=args.num_workers, **_shard_kwargs(args)),
         DataLoader(test_ds, args.batch_size, shuffle=False,
-                   num_workers=args.num_workers),
+                   num_workers=args.num_workers, **_shard_kwargs(args)),
     )
 
 
@@ -180,9 +215,9 @@ def create_dataloaders_summer2winter(args):
     print(f"Testing samples: {len(test_ds)}")
     return (
         DataLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed,
-                   num_workers=args.num_workers),
+                   num_workers=args.num_workers, **_shard_kwargs(args)),
         DataLoader(test_ds, args.batch_size, shuffle=False,
-                   num_workers=args.num_workers),
+                   num_workers=args.num_workers, **_shard_kwargs(args)),
     )
 
 
@@ -262,9 +297,55 @@ def main(args):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device (the driver runs on the card by "
                            "default); pass --platform cpu to run on the CPU")
+    if args.multihost:
+        rank_device = mesh.init_from_env(device)
+        try:
+            return _run_rank(rank_device, args)
+        finally:
+            mesh.destroy()
+    n = mesh.resolve_devices(args.num_devices, device)
+    if n > 1:
+        output_dir = (Path(args.resume).parent if args.resume
+                      else _new_run_dir(args))
+        print(f"Data parallelism: spawning {n} ranks on {device.type}")
+        mesh.spawn(_run_rank, n, device, args, output_dir)
+        return output_dir
+    return _run_rank(device, args)
+
+
+def _new_run_dir(args) -> Path:
+    """A fresh run's directory (reference train.py:397-412)."""
+    timestamp = datetime.now().strftime("%m%d_%H%M")
+    return Path(args.output_dir) / (
+        f"{args.architecture}_{timestamp}_{args.source_modality}_to_"
+        f"{args.target_modality}_{args.dataset}")
+
+
+class _NullWriter:
+    """The TensorBoard writer of a rank other than the primary."""
+
+    def add_scalar(self, *args) -> None:
+        pass
+
+    add_images = add_scalar
+
+    def close(self) -> None:
+        pass
+
+
+def _run_rank(device, args, output_dir=None):
+    """The run on `device`: the whole run without a group, this rank's part
+    of it in one (`output_dir`: the run directory a --num_devices launcher
+    named). The ranks other than the primary print nothing. Returns the run
+    directory."""
+    primary = mesh.is_primary()
+    if not primary:
+        sys.stdout = open(os.devnull, "w")
     print(f"Device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+             if device.type == "cuda" else "")
+          + (f", rank {mesh.rank()} of {mesh.world_size()}"
+             if mesh.world_size() > 1 else ""))
 
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
@@ -279,18 +360,21 @@ def main(args):
         output_dir = checkpoint_path.parent
         print(f"Resuming run in directory: {output_dir}")
     else:
-        timestamp = datetime.now().strftime("%m%d_%H%M")
-        output_dir = Path(args.output_dir) / (
-            f"{args.architecture}_{timestamp}_{args.source_modality}_to_"
-            f"{args.target_modality}_{args.dataset}"
-        )
-        output_dir.mkdir(parents=True, exist_ok=True)
-        with open(output_dir / "args.json", "w") as f:
-            json.dump(vars(args), f, indent=2)
+        if output_dir is None:
+            output_dir = _new_run_dir(args)
+            if mesh.world_size() > 1:  # the primary's name on every host
+                name = [str(output_dir)]
+                dist.broadcast_object_list(name, src=0,
+                                           group=mesh.cpu_group())
+                output_dir = Path(name[0])
+        if primary:
+            output_dir.mkdir(parents=True, exist_ok=True)
+            with open(output_dir / "args.json", "w") as f:
+                json.dump(vars(args), f, indent=2)
         print(f"Output directory: {output_dir}")
 
     tensorboard_dir = output_dir / "tensorboard"
-    if args.resume:
+    if args.resume and primary:
         meta = json.loads((Path(args.resume) / "meta.json").read_text())
         truncate_tensorboard_events(tensorboard_dir, meta["epoch"])
 
@@ -316,22 +400,24 @@ def main(args):
         print(f"Using Hypersim dataset in "
               f"{'paired' if args.paired else 'unpaired'} mode")
 
-    writer = TBWriter(tensorboard_dir)
+    writer = TBWriter(tensorboard_dir) if primary else _NullWriter()
     print(f"TensorBoard logs: {tensorboard_dir}")
     # NaN observability: on a non-finite loss the step skips the update AND
     # dumps loss/batch/params/grads to the run dir (reference prints all
     # params+grads to console, Networks.py:356-372).
-    if not args.no_nan_dump:
+    if not args.no_nan_dump and primary:
         nan_dump.enable(output_dir)
     # Preemption grace: the first SIGTERM/SIGINT finishes the in-flight
     # step, saves a resumable checkpoint_preempt/ and returns; a second
-    # signal aborts immediately.
-    stop = GracefulShutdown().install()
+    # signal aborts immediately. In a group the ranks agree on the step.
+    local_stop = GracefulShutdown().install()
+    stop = (AgreedStop(local_stop, mesh.cpu_group())
+            if mesh.world_size() > 1 else local_stop)
     try:
         return _train(args, device, output_dir, writer, train_loader,
                       test_loader, stop)
     finally:
-        stop.uninstall()
+        local_stop.uninstall()
         nan_dump.disable()
         writer.close()
         for loader in (train_loader, test_loader):
@@ -342,7 +428,10 @@ def main(args):
 def _train(args, device, output_dir, writer, train_loader, test_loader,
            stop):
     task = build_task(args, device)
-    engine = Engine(task, seed=args.seed)
+    primary = mesh.is_primary()
+    progress = not args.quiet and primary
+    engine = Engine(task, seed=args.seed,
+                    group=dist.group.WORLD if mesh.world_size() > 1 else None)
 
     # Pretrained Double* -> Cycle* transfer (reference train.py:443-460)
     if args.pretrained_doubleae is not None and args.pretrained_doublevae is not None:
@@ -386,7 +475,7 @@ def _train(args, device, output_dir, writer, train_loader, test_loader,
     if test_loader is not None:
         print(f"\n{'=' * 80}\nINITIAL VALIDATION (Before Training)\n{'=' * 80}")
         loss0, comps0, *_ = engine.validate(
-            test_loader, progress=not args.quiet, epoch=start_epoch)
+            test_loader, progress=progress, epoch=start_epoch)
         print(f"Initial Test Loss: {loss0:.4f}")
         for k, v in comps0.items():
             print(f"  {k}: {v:.6f}")
@@ -399,7 +488,8 @@ def _train(args, device, output_dir, writer, train_loader, test_loader,
         print(f"\nEpoch {epoch + 1}/{args.epochs}")
         train_loader.set_epoch(epoch)
         profiler = None
-        if args.profile_dir is not None and epoch == start_epoch:
+        if (args.profile_dir is not None and epoch == start_epoch
+                and primary):
             profiler = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]
                 + ([torch.profiler.ProfilerActivity.CUDA]
@@ -408,7 +498,7 @@ def _train(args, device, output_dir, writer, train_loader, test_loader,
                     args.profile_dir))
             profiler.start()
         train_loss, train_comps, _ = engine.train_epoch(
-            train_loader, progress=not args.quiet, epoch=epoch,
+            train_loader, progress=progress, epoch=epoch,
             should_stop=stop,
         )
         if profiler is not None:
@@ -417,8 +507,9 @@ def _train(args, device, output_dir, writer, train_loader, test_loader,
         if stop.requested:
             # Save as epoch-1: --resume re-runs the interrupted epoch, so
             # the epoch-indexed TB schema and save/best cadence stay exact.
-            save_checkpoint(task, epoch - 1, train_loss, vars(args),
-                            output_dir / "checkpoint_preempt", engine)
+            if primary:
+                save_checkpoint(task, epoch - 1, train_loss, vars(args),
+                                output_dir / "checkpoint_preempt", engine)
             print(f"Preemption checkpoint saved; resume with:\n  "
                   f"--resume {output_dir / 'checkpoint_preempt'}")
             return output_dir
@@ -434,7 +525,7 @@ def _train(args, device, output_dir, writer, train_loader, test_loader,
 
         if test_loader is not None and epoch % args.log_image_freq == 0:
             test_loss, test_comps, test_Gx, test_Fy, test_x, test_y = (
-                engine.validate(test_loader, progress=not args.quiet,
+                engine.validate(test_loader, progress=progress,
                                 epoch=epoch + 1))
             print(f"Test Loss: {test_loss:.4f}")
             for k, v in test_comps.items():
@@ -458,11 +549,12 @@ def _train(args, device, output_dir, writer, train_loader, test_loader,
 
             if test_loss < best_test_loss:
                 best_test_loss = test_loss
-                save_checkpoint(task, epoch, test_loss, vars(args),
-                                output_dir / "best_model", engine)
+                if primary:
+                    save_checkpoint(task, epoch, test_loss, vars(args),
+                                    output_dir / "best_model", engine)
                 print(f"New best model saved (test_loss: {test_loss:.4f})")
 
-        if (epoch + 1) % args.save_freq == 0:
+        if (epoch + 1) % args.save_freq == 0 and primary:
             save_checkpoint(task, epoch, train_loss, vars(args),
                             output_dir / f"checkpoint_epoch_{epoch + 1}",
                             engine)
@@ -519,11 +611,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--precision", choices=["float32", "bf16"],
                         default="float32")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="Devices to train on: one (above 1 is not "
-                             "ported, ROADMAP.md queue 1, item 7)")
+                        help="Data-parallel ranks on this host, one device "
+                             "each (default: every visible CUDA device; "
+                             "CPU ranks over gloo with --platform cpu)")
     parser.add_argument("--spatial", type=int, default=1,
                         help="Spatial-parallel axis size: not ported above "
-                             "1 (ROADMAP.md queue 1, item 7)")
+                             "1 (ROADMAP.md queue 1, item 7c)")
     parser.add_argument("--remat", action="store_true",
                         help="Rematerialize generator forwards "
                              "(torch.utils.checkpoint) to fit device memory")
@@ -558,8 +651,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Enable autograd anomaly detection (fail fast "
                              "at the op that produced a NaN; slows training)")
     parser.add_argument("--multihost", action="store_true",
-                        help="Multi-host training: not ported (ROADMAP.md "
-                             "queue 1, item 7)")
+                        help="This process is one rank of a group torchrun "
+                             "describes (RANK, WORLD_SIZE, LOCAL_RANK, "
+                             "MASTER_ADDR, MASTER_PORT)")
     return parser
 
 

@@ -19,12 +19,21 @@ the cost of re-doing at most one epoch of steps.
 Counterpart of ``vae_cyclegan_tpu/utils/preempt.py``, copied; the port's
 ``Engine.train_epoch`` polls it through `should_stop`, and its checkpoint
 holds the task's weights, both Adam states and the training generator.
+
+In a process group the signal may reach one rank only (a host's own
+eviction notice) or every rank at different steps. ``AgreedStop`` makes
+it one decision: polled at each step boundary, it takes the maximum of
+every rank's flag in one all_reduce over a gloo group (host memory: the
+poll does not wait for the card), so every rank stops after the same step
+and the primary rank saves the checkpoint.
 """
 
 from __future__ import annotations
 
 import signal
 from typing import Iterable
+
+import torch
 
 
 class GracefulShutdown:
@@ -65,4 +74,26 @@ class GracefulShutdown:
         )
 
     def __call__(self) -> bool:
+        return self.requested
+
+
+class AgreedStop:
+    """`local` (a ``GracefulShutdown``) agreed across the ranks of `group`:
+    each poll all_reduces the ranks' flags (their maximum), and once any
+    rank has asked, every rank reads ``requested`` True from that step on.
+    Every rank must poll at the same steps."""
+
+    def __init__(self, local: GracefulShutdown, group):
+        self.local = local
+        self.group = group
+        self.requested = False
+
+    def __call__(self) -> bool:
+        if not self.requested:
+            import torch.distributed as dist
+
+            flag = torch.tensor([int(self.local.requested)],
+                                dtype=torch.int32)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+            self.requested = bool(flag.item())
         return self.requested
