@@ -119,13 +119,21 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               (``ModelConfig.remat``): one step's metrics on the same noise
               (bit for bit, else within rtol 2e-3), launches per step (the
               recompute adds 5 K1 and 2 K3 per generator pass), step time
-              and peak memory, remat's below the other's; 10 steps of the
-              paired batch-4 task in bf16, f32 and four one-ulp twins of
-              f32 (``python -m vae_cyclegan_tpu_torch.parity_curves``), the
-              bf16 trajectory's mean G_loss and D_loss within max(2%, 2x the
-              largest twin's gap) of f32's, every value finite; the same for the tiled configuration (K2); the
-              host microseconds per call of the K1 / K3 / K4 sites through
-              the custom operators (``host_cost``)
+              and peak memory, remat's below the other's; for each of three
+              seeds (batch, noise, init), 10 steps of the paired batch-4
+              task in bf16, f32 and four one-ulp twins of f32 (``python -m
+              vae_cyclegan_tpu_torch.parity_curves``), and bf16 and f32 in
+              the tiled configuration (K2): the mean over the seeds of the
+              bf16 trajectory's mean G_loss and D_loss gaps to f32's within
+              the mean over the seeds of max(2%, 2x the seed's largest twin
+              gap), every reading printed, every value finite, cuDNN's
+              autotuner over its deterministic algorithms; then the bf16
+              runs again with every discriminator score x1.25 seeded, which
+              the D_loss check must catch (``chip_smoke.py
+              --trajectory-fault d_score=1.1 lambda_gan=1.1 ...`` runs this
+              phase alone with the faults given); the host microseconds
+              per call of the K1 / K3 / K4 sites through the custom
+              operators (``host_cost``)
  13. data parallelism: a world-1 NCCL group (``parallel.mesh``); the
               full-width bf16 paired cyclevaegan at batch 24 through
               ``Engine(task, seed, group)``: its first step's synced
@@ -141,6 +149,27 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               process's plain step on each rank's samples (rtol 2e-3),
               their parameters within one Adam step of the world-1 step on
               all 4, the ranks bit for bit equal
+ 14. spatial parallelism: K2's split kernels (in_stats, in_apply,
+              csrc/in_split.cu) against their plain versions in f32 and bf16
+              at the spatial path's local shapes (a spatial group of 2 at
+              256x256, batch 4: the K1 sites' 1024 x 8 x 16, the
+              discriminator's 256 x 16 x 32 and 512 x 8 x 16, the tiled head
+              site's 64 x 128 x 256), bit for bit on a second launch, timed
+              beside their plain versions and their library calls
+              (torch.var_mean; F.batch_norm in eval mode for the identity
+              apply) with their byte bounds; the one-process f32 step under
+              a spatial scope of 1 (the K3/K4 strips, the split kernels)
+              against the plain one-process f32 step (tests/
+              test_torch_spatial.py's one-step bars); two spawned gloo ranks
+              on the one card as one spatial group (``parallel.mesh.make_spatial``, ``Engine(...,
+              spatial=)``), the paired cyclevaegan at full width, global
+              batch 4: the f32 step against the one-process step under a
+              spatial scope of 1 (check_f32_step's bars), the ranks bit for
+              bit equal; the bf16 step's launches per rank (K3 reflect 12,
+              zero_same 14, K4 18, in_stats and in_apply 46 each, K1 and K2
+              none), each rank's step time and peak memory beside the
+              one-process steps' (plain and scope of 1); the bench's
+              ``BENCH_SPATIAL=1`` line once
 
 Each main path (the serving requests, each training run) is driven with
 every launch count set to 0 just before it and read just after it. Any
@@ -151,6 +180,7 @@ and the one before that is the ``{"kernels": [...]}`` summary.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -167,7 +197,7 @@ import torch.nn.functional as F
 from vae_cyclegan_tpu_torch import bench, host_cost, kernels, parity_curves
 from vae_cyclegan_tpu_torch import test as test_driver
 from vae_cyclegan_tpu_torch import train as train_driver
-from vae_cyclegan_tpu_torch.config import ModelConfig
+from vae_cyclegan_tpu_torch.config import ModelConfig, OptimConfig
 from vae_cyclegan_tpu_torch.data import (
     AugmentConfig,
     DataLoader,
@@ -193,10 +223,15 @@ from vae_cyclegan_tpu_torch.host_cost import host_us
 from vae_cyclegan_tpu_torch.inference import run_inference
 from vae_cyclegan_tpu_torch.models.tasks import ARCHITECTURES, create_task
 from vae_cyclegan_tpu_torch.ops.instance_norm import (
+    EPS,
     ORDERS,
     fused_reference,
     in_act_cuda,
     in_act_tiled_cuda,
+    in_apply_cuda,
+    in_apply_reference,
+    in_stats_cuda,
+    in_stats_reference,
     instance_norm_act,
     plane_plan,
     slab_fits,
@@ -204,7 +239,7 @@ from vae_cyclegan_tpu_torch.ops.instance_norm import (
 )
 from vae_cyclegan_tpu_torch.ops.padding import reflect_pad
 from vae_cyclegan_tpu_torch.ops.reflect_conv import reflect_conv
-from vae_cyclegan_tpu_torch.parallel import dp, mesh
+from vae_cyclegan_tpu_torch.parallel import dp, mesh, spatial
 from vae_cyclegan_tpu_torch.ops.starved_conv import (
     dw_cuda,
     dw_reference,
@@ -412,6 +447,8 @@ UNPAIRED_STEP_LAUNCHES = tuple(bench.UNPAIRED_STEP_LAUNCHES.get(n, 0)
                                for n in KERNEL_NAMES)
 AUG_TOL = (1e-4, 0.0)
 BENCH_TIMEOUT = 600
+# the bench child's depth (its defaults: 10 and 12)
+BENCH_CHILD_STEPS, BENCH_CHILD_E2E_STEPS = 5, 4
 STEP_SPECTRAL_ATOL = 1e-5
 STEP_PARAM_SHARE = 0.05
 
@@ -1084,7 +1121,7 @@ def _counts() -> tuple:
 
 
 def _zero_counts() -> None:
-    for fn in WRAPPERS + EXP_WRAPPERS:
+    for fn in WRAPPERS + EXP_WRAPPERS + SPLIT_WRAPPERS:
         fn.launches = 0
 
 
@@ -1858,11 +1895,14 @@ def _bench_child(card: str) -> dict:
     """``python -m vae_cyclegan_tpu_torch.bench`` at its defaults in a child
     process, but for the loader-only phase (``BENCH_LOADER_ONLY=0``: the
     host's decode capability, no device in the loop, and ~1 min of this
-    script's time limit on a busy host); its JSON line, held to: no error
-    key, a positive step and e2e rate, an e2e epoch of several batches, the
+    script's time limit on a busy host) and at less depth (windows of
+    BENCH_CHILD_STEPS steps, an e2e epoch of BENCH_CHILD_E2E_STEPS batches:
+    the script's time limit); its JSON line, held to: no error key, a
+    positive step and e2e rate, an e2e epoch of several batches, the
     unpaired step's launches per step, the world-1 group it ran through."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
-    env["BENCH_LOADER_ONLY"] = "0"
+    env.update(BENCH_LOADER_ONLY="0", BENCH_STEPS=str(BENCH_CHILD_STEPS),
+               BENCH_E2E_STEPS=str(BENCH_CHILD_E2E_STEPS))
     proc = subprocess.run(
         [sys.executable, "-m", "vae_cyclegan_tpu_torch.bench"],
         capture_output=True, text=True, timeout=BENCH_TIMEOUT, env=env,
@@ -2355,16 +2395,32 @@ REMAT_BATCH = 24
 # CPU test tests/test_torch_remat.py derives the same from the sites)
 REMAT_PASS_LAUNCHES = (5, 0, 2, 0, 0)
 # the trajectories: steps at the path's batch, and the bar on the bf16
-# trajectory's means against f32's: max(TRAJ_BAR, TRAJ_BAND x the f32
-# trajectory's one-ulp band). The band is the largest gap of four one-ulp
-# twins of the f32 run (every parameter up, and three seeded up/down coin
-# patterns), as the JAX package took the largest of five probes for vaegan:
-# D_loss is chaotic after the first update, so one twin's gap is one draw,
-# and against one draw the bf16 trajectory of a correct port would miss the
-# bar about one time in four (a normal model of the two gaps; four twins:
-# about one in twenty-five)
+# trajectory's means against f32's. Per seed (batch, noise and init), the bar
+# is max(TRAJ_BAR, TRAJ_BAND x that seed's f32 one-ulp band), the band the
+# largest gap of the seed's one-ulp twins of the f32 run (every parameter
+# up, and a seeded up/down coin pattern), as the JAX package took the largest
+# of its probes for vaegan. D_loss is chaotic after the first update, so one
+# seed's gap is one draw: held alone, a correct port missed the bar about
+# one run in five (once 7.59% against a bar of 6.33%). So the check holds
+# the MEAN over TRAJ_SEEDS of the per-seed gaps against the mean of the
+# per-seed bars, and prints every reading. cuDNN's autotuner is on for these
+# runs, restricted to deterministic algorithms: it picks each shape's
+# algorithm once, at the shape's first call, and every later run of the
+# process (the twins too) runs that one. With TF32 off the default f32
+# algorithms took 26 s for the 10 steps of a run, the autotuned ones 4.1 s,
+# which pays for four twins a seed. The D_loss curves are not held before
+# the chaos either: bf16's step-0 D_loss (one forward, before any update)
+# already sits 0.6-5.2% from f32's, over the 2% floor, while the twins agree
+# there to 1e-5; the per-seed lines print that gap
 TRAJ_STEPS = 10
 TRAJ_BAR, TRAJ_BAND = 0.02, 2.0
+# the defect every run seeds once more in its bf16 runs, to show the check
+# alive: every discriminator score x1.25, which the D_loss half must catch
+# (NVIDIA H100 80GB HBM3, 700 W: D_loss mean gaps 35.8% and 38.6% against
+# a mean bar of 11.6%; x1.1 read 12.6% and 14.2%; lambda_gan x1.1 and x2,
+# which act only through the generator's Adam steps, were not caught)
+TRAJ_FAULT = ("d_score", 1.25)
+TRAJ_SEEDS = (0, 1, 2)
 TRAJ_TWINS = ("f32_ulp", "f32_ulp1", "f32_ulp2", "f32_ulp3")
 
 
@@ -2527,18 +2583,20 @@ def _phase_remat(card: str) -> None:
         f"{remat['ms'] / plain['ms']:.3f}x [{card}]")
 
 
-def _trajectories(runs, instance_norm: str, out: Path) -> dict:
+def _trajectories(runs, instance_norm: str, out: Path, seed: int) -> dict:
     """``python -m vae_cyclegan_tpu_torch.parity_curves`` in process:
     cyclevaegan at full width, TRAJ_STEPS steps at the path's batch, every
-    run from the same weights and data; its record, with the launches the
-    runs made (counts set to 0 just before, read just after)."""
+    run from the same weights and data (those of `seed`); its record, with
+    the launches the runs made (counts set to 0 just before, read just
+    after)."""
     _zero_counts()
     rc = parity_curves.main([
         "--archs", "cyclevaegan", "--steps", str(TRAJ_STEPS),
         "--image_size", str(IMAGE), "--batch", str(PATH_BATCH),
         "--base_width", str(BASE), "--latent_dim", str(LATENT),
-        "--instance_norm", instance_norm, "--runs", *runs,
-        "--reference", "f32", "--out", str(out)])
+        "--seed", str(seed), "--instance_norm", instance_norm,
+        "--runs", *runs, "--reference", "f32" if "f32" in runs else runs[0],
+        "--out", str(out)])
     torch.cuda.synchronize()
     require(rc == 0, f"parity_curves exited {rc}")
     (rec,) = json.loads(out.read_text())
@@ -2552,49 +2610,180 @@ def _trajectories(runs, instance_norm: str, out: Path) -> dict:
     return rec
 
 
-def _phase_trajectory(card: str) -> None:
-    """(c) the bf16 trajectory (the kernels) against the f32 one, beside
-    the f32 trajectory's own one-ulp band; then the tiled configuration's
-    bf16 trajectory against its f32 one, under the same band."""
+@contextlib.contextmanager
+def _bf16_fault(fault):
+    """A seeded defect in the bf16 runs only, to show what the trajectory
+    check catches; nothing without a fault. `fault`: (LossConfig field,
+    factor), that weight scaled (e.g. ("lambda_gan", 1.1)), or ("d_score",
+    k): every discriminator's score scaled by k, as a spectral norm whose
+    sigma is off by 1/k would scale it."""
+    if fault is None:
+        yield
+        return
+    from vae_cyclegan_tpu_torch.config import LossConfig
+    from vae_cyclegan_tpu_torch.models.networks import Discriminator
+
+    field, factor = fault
+    orig = parity_curves.create_task
+
+    def scaled(forward):
+        return lambda x, update_stats=False: forward(x, update_stats) * factor
+
+    def create(arch, model, **kw):
+        if model.dtype != torch.bfloat16:
+            return orig(arch, model=model, **kw)
+        if field != "d_score":
+            base = getattr(LossConfig(), field)
+            kw["loss"] = LossConfig(**{field: base * factor})
+        task = orig(arch, model=model, **kw)
+        if field == "d_score":
+            for m in task.nets.modules():
+                if isinstance(m, Discriminator):
+                    m.forward = scaled(m.forward)
+        return task
+
+    parity_curves.create_task = create
+    try:
+        yield
+    finally:
+        parity_curves.create_task = orig
+
+
+@contextlib.contextmanager
+def _fixed_cudnn():
+    """cuDNN's autotuner over its deterministic algorithms, for the phase."""
+    cudnn = torch.backends.cudnn
+    old = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark = cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.deterministic = old
+
+
+def _phase_trajectory(card: str, faults=()) -> None:
+    """(c) for each of TRAJ_SEEDS, the bf16 trajectory (the kernels) against
+    the f32 one, beside that seed's f32 one-ulp band, and the tiled
+    configuration's bf16 trajectory against its f32 one under the same band;
+    each check holds the mean over the seeds of the gaps against the mean
+    of the bars, and must pass. Then for each of `faults` (``_bf16_fault``)
+    the bf16 runs again with that defect, held against the same f32 runs
+    and bars: some check must fail."""
     OUT_DIR.mkdir(exist_ok=True)
     t0 = time.perf_counter()
-    auto = _trajectories(["bf16", "f32", *TRAJ_TWINS], "auto",
-                         OUT_DIR / "parity_curves.json")
-    per_run = tuple(TRAJ_STEPS * n for n in STEP_LAUNCHES)
-    runs = 2 + len(TRAJ_TWINS)
-    require(auto["launches"] == tuple(runs * n for n in per_run),
-            f"trajectory launches {auto['launches']}: expected {runs} runs x "
-            f"{per_run}")
-    band = {k: max(auto["gaps"][t][k]["mean"] for t in TRAJ_TWINS)
-            for k in ("G_loss", "D_loss")}
-    for twin in TRAJ_TWINS:
-        say(f"trajectory f32 one-ulp twin {twin}: mean gaps to f32 " + ", ".join(
-            f"{k} {g['mean']:.4%}" for k, g in auto["gaps"][twin].items()))
-    tiled = _trajectories(["bf16", "f32"], "tiled",
-                          OUT_DIR / "parity_curves_tiled.json")
-    per_run = tuple(TRAJ_STEPS * n for n in TILED_STEP_LAUNCHES)
-    require(tiled["launches"] == tuple(2 * n for n in per_run),
-            f"tiled trajectory launches {tiled['launches']}: expected 2 runs "
-            f"x {per_run}")
-    for label, rec in (("auto", auto), ("tiled", tiled)):
-        for run in rec["runs"]:
-            means = ", ".join(
-                f"{k} mean {np.mean(rec[f'{run}_{k}']):.5f}"
-                for k in ("G_loss", "D_loss"))
-            say(f"trajectory {label} {run} ({TRAJ_STEPS} steps, batch "
-                f"{PATH_BATCH}): {means}; G_loss "
-                f"{[round(v, 4) for v in rec[f'{run}_G_loss']]}")
-        for key, gap in rec["gaps"]["bf16"].items():
-            bar = max(TRAJ_BAR, TRAJ_BAND * band[key])
-            ok = gap["mean"] <= bar
-            say(f"check trajectory {label} bf16 vs f32 {key}: mean gap "
-                f"{gap['mean']:.4%} (largest step gap {gap['max']:.4%}); bar "
-                f"max({TRAJ_BAR:.0%}, {TRAJ_BAND:g} x the f32 one-ulp band "
-                f"{band[key]:.4%}, the largest of {len(TRAJ_TWINS)} twins) = "
-                f"{bar:.4%} {'ok' if ok else 'FAIL'}")
-            require(ok, f"trajectory {label} bf16 vs f32 {key}")
+    recs = {"auto": [], "tiled": []}
+    bands = []
+    with _fixed_cudnn():
+        _seed_runs(recs, bands)
+        failed = _trajectory_checks(recs, bands, None)
+        require(not failed, "; ".join(failed))
+        missed = []
+        for fault in faults:
+            caught = _trajectory_checks(_fault_runs(recs, fault), bands, fault)
+            say(f"seeded fault {fault[0]}={fault[1]:g}: "
+                + (f"caught by {caught}" if caught else "NOT caught"))
+            if not caught:
+                missed.append(f"{fault[0]}={fault[1]:g}")
     say(f"trajectory phase: {time.perf_counter() - t0:.1f} s (curves in "
         f"{OUT_DIR}/parity_curves*.json) [{card}]")
+    require(not missed, f"seeded faults the trajectory check missed: {missed}")
+
+
+def _seed_runs(recs: dict, bands: list) -> None:
+    """Every seed's auto runs (bf16, f32, the twins) and tiled runs (bf16,
+    f32), their launches checked; `recs` and `bands` filled in seed order."""
+    for seed in TRAJ_SEEDS:
+        auto = _trajectories(["bf16", "f32", *TRAJ_TWINS], "auto",
+                             OUT_DIR / f"parity_curves_seed{seed}.json", seed)
+        per_run = tuple(TRAJ_STEPS * n for n in STEP_LAUNCHES)
+        runs = 2 + len(TRAJ_TWINS)
+        require(auto["launches"] == tuple(runs * n for n in per_run),
+                f"trajectory launches {auto['launches']}: expected "
+                f"{runs} runs x {per_run}")
+        bands.append({k: max(auto["gaps"][t][k]["mean"] for t in TRAJ_TWINS)
+                      for k in ("G_loss", "D_loss")})
+        for twin in TRAJ_TWINS:
+            say(f"trajectory seed {seed} f32 one-ulp twin {twin}: mean "
+                "gaps to f32 " + ", ".join(
+                    f"{k} {g['mean']:.4%}"
+                    for k, g in auto["gaps"][twin].items()))
+        tiled = _trajectories(
+            ["bf16", "f32"], "tiled",
+            OUT_DIR / f"parity_curves_tiled_seed{seed}.json", seed)
+        per_run = tuple(TRAJ_STEPS * n for n in TILED_STEP_LAUNCHES)
+        require(tiled["launches"] == tuple(2 * n for n in per_run),
+                f"tiled trajectory launches {tiled['launches']}: "
+                f"expected 2 runs x {per_run}")
+        recs["auto"].append(auto)
+        recs["tiled"].append(tiled)
+
+
+def _fault_runs(recs: dict, fault) -> dict:
+    """The bf16 runs of every seed and configuration again with `fault`
+    seeded, their curves and gaps put in place of the clean bf16 run's in
+    copies of `recs` (the f32 runs and their twins stay)."""
+    out = {}
+    with _bf16_fault(fault):
+        for label, launches in (("auto", STEP_LAUNCHES),
+                                ("tiled", TILED_STEP_LAUNCHES)):
+            out[label] = []
+            for seed, rec in zip(TRAJ_SEEDS, recs[label]):
+                got = _trajectories(
+                    ["bf16"], label,
+                    OUT_DIR / f"parity_curves_fault_{label}_seed{seed}.json",
+                    seed)
+                require(got["launches"] == tuple(TRAJ_STEPS * n
+                                                 for n in launches),
+                        f"fault trajectory launches {got['launches']}")
+                rec = {**rec, "runs": ["bf16"],
+                       "gaps": {**rec["gaps"], "bf16": {}}}
+                for key in ("G_loss", "D_loss"):
+                    curve, ref = got[f"bf16_{key}"], rec[f"f32_{key}"]
+                    rec[f"bf16_{key}"] = curve
+                    rec["gaps"]["bf16"][key] = {
+                        "mean": parity_curves.mean_gap(curve, ref),
+                        "max": max(parity_curves.step_gaps(curve, ref))}
+                out[label].append(rec)
+    return out
+
+
+def _trajectory_checks(recs: dict, bands: list, fault) -> list:
+    """Print every seed's readings and hold each check's mean over the
+    seeds of the gaps against the mean of the bars; the checks that
+    failed."""
+    failed = []
+    for label, seeds in recs.items():
+        for seed, rec in zip(TRAJ_SEEDS, seeds):
+            for run in rec["runs"]:
+                means = ", ".join(
+                    f"{k} mean {np.mean(rec[f'{run}_{k}']):.5f}"
+                    for k in ("G_loss", "D_loss"))
+                say(f"trajectory {label} seed {seed} {run} ({TRAJ_STEPS} "
+                    f"steps, batch {PATH_BATCH}): {means}; G_loss "
+                    f"{[round(v, 4) for v in rec[f'{run}_G_loss']]}; D_loss "
+                    f"{[round(v, 4) for v in rec[f'{run}_D_loss']]}")
+        for key in ("G_loss", "D_loss"):
+            gaps = [rec["gaps"]["bf16"][key]["mean"] for rec in seeds]
+            bars = [max(TRAJ_BAR, TRAJ_BAND * band[key]) for band in bands]
+            for seed, rec, gap, bar, band in zip(TRAJ_SEEDS, seeds, gaps,
+                                                 bars, bands):
+                first = parity_curves.step_gaps(rec[f"bf16_{key}"][:1],
+                                                rec[f"f32_{key}"][:1])[0]
+                say(f"trajectory {label} seed {seed} bf16 vs f32 {key}: mean "
+                    f"gap {gap:.4%} (largest step gap "
+                    f"{rec['gaps']['bf16'][key]['max']:.4%}, step 0 "
+                    f"{first:.4%}); bar max({TRAJ_BAR:.0%}, {TRAJ_BAND:g} x "
+                    f"the seed's f32 one-ulp band {band[key]:.4%}) = "
+                    f"{bar:.4%}")
+            ok = float(np.mean(gaps)) <= float(np.mean(bars))
+            say(f"check trajectory {label} bf16 vs f32 {key}: mean over "
+                f"{len(TRAJ_SEEDS)} seeds of the mean gaps "
+                f"{np.mean(gaps):.4%} against the mean of the bars "
+                f"{np.mean(bars):.4%} {'ok' if ok else 'FAIL'}"
+                + ("" if fault is None else f" (seeded fault {fault})"))
+            if not ok:
+                failed.append(f"trajectory {label} bf16 vs f32 {key}")
+    return failed
 
 
 def phase_export_remat_trajectory(card: str) -> None:
@@ -2604,7 +2793,7 @@ def phase_export_remat_trajectory(card: str) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         _phase_export(card, Path(tmp))
     _phase_remat(card)
-    _phase_trajectory(card)
+    _phase_trajectory(card, (TRAJ_FAULT,))
     us = host_cost.measure()
     say("host us per call through the vct ops: " + ", ".join(
         f"{k} {v:.1f}" for k, v in us.items()) + f" [{card}]")
@@ -2876,7 +3065,405 @@ def phase_data_parallel(card: str) -> None:
         f"[{card}]")
 
 
+# Phase 14, spatial parallelism. K2's split kernels (csrc/in_split.cu) at
+# the spatial path's local shapes (a spatial group of 2 at 256x256, batch 4:
+# each rank holds half the rows): the generator's K1 sites (1024 x 16 x 16),
+# the discriminator's (256 x 32 x 32 and 512 x 16 x 16) and the tiled
+# configuration's head site (64 x 256 x 256), (shape, act, order); the first
+# gives the summary line's times, as the identity site does for K1
+SPLIT_WRAPPERS = (in_stats_cuda, in_apply_cuda)
+SPLIT_NAMES = ("in_stats", "in_apply")
+SP_SIZE = 2
+SPLIT_SITES = [
+    ((PATH_BATCH, 16 * BASE, IMAGE // 32, IMAGE // 16), "identity",
+     "act_norm"),
+    ((PATH_BATCH, 16 * BASE, IMAGE // 32, IMAGE // 16), "relu", "act_norm"),
+    ((PATH_BATCH, 4 * BASE, IMAGE // 16, IMAGE // 8), "leaky_relu",
+     "norm_act"),
+    ((PATH_BATCH, 8 * BASE, IMAGE // 32, IMAGE // 16), "leaky_relu",
+     "norm_act"),
+    ((PATH_BATCH, BASE, IMAGE // 2, IMAGE), "relu", "norm_act"),
+]
+# the sums' bar: f32 sums of up to 32768 elements in another order
+SPLIT_STATS_RTOL = 1e-4
+# f32 operations per element: stats (activation, add, multiply-add), apply
+# (activation, subtract, multiply, activation)
+STATS_OPS, APPLY_OPS = 3, 4
+# the two-rank steps' global batch, and a rank's launches per paired
+# cyclevaegan bf16 step in WRAPPERS + SPLIT_WRAPPERS order: the K3/K4 sites
+# of one process, K2's split at its 46 K1 sites, no K1 or K2
+SP_BATCH = PATH_BATCH
+SP_STEP_LAUNCHES = (0, 0) + STEP_LAUNCHES[2:] + (STEP_LAUNCHES[0],) * 2
+SP_WARMUP, SP_STEPS = 1, 3
+# the scope of 1 against the plain step (two formulas: single-pass
+# statistics, the strips): tests/test_torch_spatial.py's one-step bars,
+# metrics 1e-3 relative (+1e-5), parameters one Adam step, and at most
+# cyclevaegan's share of elements further than lr
+SCOPE_METRIC_RTOL, SCOPE_FLIPPED = 1e-3, 0.04
+
+
+def _sp_counts() -> tuple:
+    return _counts() + tuple(fn.launches for fn in SPLIT_WRAPPERS)
+
+
+def _split_bound(shape, dtype, apply: bool) -> dict:
+    """A split pass over one NCHW tensor: x read once (and y written once
+    for the apply), the 8-byte sums of each plane read or written once."""
+    n = int(np.prod(shape))
+    size = torch.empty((), dtype=dtype).element_size()
+    planes = shape[0] * shape[1]
+    return bound((2 if apply else 1) * n * size + 8 * planes,
+                 (APPLY_OPS if apply else STATS_OPS) * n, "f32")
+
+
+def phase_split_kernels(card: str) -> tuple:
+    """in_stats and in_apply against their plain versions (f32 and bf16) at
+    SPLIT_SITES, each a second time bit for bit; the apply with the global
+    count of a spatial group of 2. Then times at every site (bf16: kernel,
+    plain, and the library calls: torch.var_mean for the stats, and for the
+    apply at the identity sites F.batch_norm in eval mode) and the summary
+    site's device times and byte bounds. Returns
+    (largest errors, the summary site's times)."""
+    errs = dict.fromkeys(SPLIT_NAMES, 0.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (shape, act, order) in enumerate(SPLIT_SITES):
+            x = randn(shape, 1400 + i, dtype, 2.0) + 0.5
+            hw = shape[2] * shape[3]
+            label = f"{shape} {act}/{order} {str(dtype)[6:]}"
+            st = in_stats_cuda(x, act, order)
+            want = in_stats_reference(x, act, order)
+            errs["in_stats"] = max(errs["in_stats"], compare(
+                f"in_stats {label}", st, want,
+                tol=(SPLIT_STATS_RTOL * hw ** 0.5, SPLIT_STATS_RTOL)))
+            require(torch.equal(in_stats_cuda(x, act, order), st),
+                    f"in_stats {label}: second launch not bit for bit")
+            count = float(hw * SP_SIZE)
+            y = in_apply_cuda(x, want, count, act, order)
+            errs["in_apply"] = max(errs["in_apply"], compare(
+                f"in_apply {label} (count {count:g})", y,
+                in_apply_reference(x, want, count, act, order)))
+            require(torch.equal(in_apply_cuda(x, want, count, act, order), y),
+                    f"in_apply {label}: second launch not bit for bit")
+            del x, y
+    b16 = torch.bfloat16
+    times = {}
+    for i, (shape, act, order) in enumerate(SPLIT_SITES):
+        x = randn(shape, 1500 + i, b16, 2.0) + 0.5
+        st = in_stats_reference(x, act, order)
+        count = float(shape[2] * shape[3] * SP_SIZE)
+        fns = {
+            "in_stats": lambda: in_stats_cuda(x, act, order),
+            "stats plain": lambda: in_stats_reference(x, act, order),
+            "torch.var_mean": lambda: torch.var_mean(
+                x, dim=(2, 3), correction=0),
+            "in_apply": lambda: in_apply_cuda(x, st, count, act, order),
+            "apply plain": lambda: in_apply_reference(x, st, count, act,
+                                                      order)}
+        if act == "identity":
+            # one library call computes the identity apply: batch_norm in
+            # eval mode over the (1, N*C, H, W) view, from the same moments
+            mu = (st[..., 0] / count).reshape(-1)
+            var = (st[..., 1] / count - mu.view(st.shape[:2]).square()
+                   ).clamp_min(0.0).reshape(-1)
+            xv = x.view(1, -1, *shape[2:])
+            fns["F.batch_norm"] = lambda: F.batch_norm(
+                xv, mu, var, training=False, eps=EPS).view(shape)
+            compare(f"F.batch_norm {shape} (the apply's library call)",
+                    fns["F.batch_norm"](), fns["apply plain"](),
+                    TOL[torch.bfloat16])
+        iters = 50 if x.numel() < 2 ** 24 else 10
+        ms = time_calls(fns, iters)
+        bs = _split_bound(shape, b16, False)["bound_ms"]
+        ba = _split_bound(shape, b16, True)["bound_ms"]
+        say(f"time split site {shape} {act}/{order} bf16 (CUDA events per "
+            "call): " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+            + f"; bounds stats {bs:.5f}, apply {ba:.5f} ms (bytes) [{card}]")
+        if i == 0:
+            for name, key, plain, lib, apply in (
+                    ("in_stats", "split::stats_kernel<", "stats plain",
+                     "torch.var_mean", False),
+                    ("in_apply", "split::apply_kernel<", "apply plain",
+                     "F.batch_norm", True)):
+                dev = launch_device_ms(fns[name], iters, key)
+                if dev is not None and dev > DEVICE_SLACK * ms[name]:
+                    dev = None
+                times[name] = {"ms": ms[name], "plain_ms": ms[plain],
+                               "library_ms": ms[lib],
+                               "device_ms": dev,
+                               **_split_bound(shape, b16, apply)}
+                say(f"time {name} {shape} {act}/{order} bf16: device "
+                    f"{ms_text(dev)} ms per launch [{card}]")
+        del x
+    return errs, times
+
+
+def _sp_rank(rank: int, init: str, inputs: str, out: str) -> None:
+    """One of two gloo ranks on the one card, a spatial group of 2 (phase
+    14's child): the f32 step, then the bf16 step's launches (counts set to
+    0 just before it), step times and peak memory."""
+    import torch.distributed as tdist
+
+    tdist.init_process_group("gloo", init_method=init, rank=rank,
+                             world_size=SP_SIZE)
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        data = torch.load(inputs, weights_only=False)
+        lay = mesh.make_spatial(SP_SIZE)
+        batch = {k: v.to(DEV) for k, v in data["batch"].items()}
+        res = {"layout": (lay.size, lay.rank)}
+        task = _task(torch.float32, DEV)
+        task.load_state_dict(data["state"])
+        engine = Engine(task, seed=0, group=tdist.group.WORLD, spatial=lay)
+        m = engine.train_step(batch, eps=data["eps"])
+        res["f32"] = {"metrics": {k: float(v) for k, v in m.items()},
+                      "state": {k: v.detach().cpu() for k, v in
+                                task.state_dict().items()}}
+        del task, engine, m
+        torch.cuda.empty_cache()
+        task = _task(torch.bfloat16, DEV)
+        task.load_state_dict(data["state"])
+        engine = Engine(task, seed=0, group=tdist.group.WORLD, spatial=lay)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        m = engine.train_step(batch, eps=data["eps"])
+        counts = _sp_counts()
+        res["bf16"] = {"metrics": {k: float(v) for k, v in m.items()},
+                       "counts": counts}
+        for _ in range(SP_WARMUP):
+            engine.train_step(batch)
+        lat = []
+        for _ in range(SP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.train_step(batch)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        res["bf16"].update(
+            ms=lat, peak=torch.cuda.max_memory_allocated() / 2 ** 20,
+            state={k: v.detach().cpu() for k, v in task.state_dict().items()})
+        torch.save(res, Path(out) / f"rank{rank}.pt")
+    finally:
+        tdist.destroy_process_group()
+
+
+def _scope_vs_plain_f32(state: dict, batch: dict, eps: list, want: dict,
+                        want_sd: dict, launches: tuple) -> None:
+    """The one-process f32 step under the spatial scope of 1 (the strips
+    through K3/K4, K2's split at the K1 sites) against the plain one-process
+    f32 step from the same state, batch and noise, within
+    tests/test_torch_spatial.py's one-step bars for two formulas (SCOPE_*)."""
+    task = _task(torch.float32, DEV)
+    task.load_state_dict(state)
+    got = _finite_metrics(Engine(task, seed=0).train_step(
+        {k: v.to(DEV) for k, v in batch.items()}, eps=eps))
+    got_sd = {k: v.detach().cpu() for k, v in task.state_dict().items()}
+    del task
+    lr = OptimConfig().lr
+    worst = max(abs(want[k] - v) / (abs(v) + 1e-3) for k, v in got.items())
+    ok = set(got) == set(want) and all(
+        abs(want[k] - v) <= SCOPE_METRIC_RTOL * abs(v) + 1e-5
+        for k, v in got.items())
+    spec, par, n, flipped = 0.0, 0.0, 0, 0
+    for key, c in got_sd.items():
+        d = (want_sd[key] - c).abs()
+        if key.endswith(("weight_u", "weight_v")):
+            spec = max(spec, float(d.max()))
+            continue
+        par = max(par, float(d.max()))
+        n += d.numel()
+        flipped += int((d > lr).sum())
+    names = KERNEL_NAMES + SPLIT_NAMES
+    say(f"check spatial scope of 1 f32 step vs the plain one-process f32 "
+        f"step (cyclevaegan paired, full width, batch {SP_BATCH}, TF32 off; "
+        f"the scope's launches {dict(zip(names, launches))}): metrics max relative error {worst:.3e} (rtol "
+        f"{SCOPE_METRIC_RTOL:g}, atol 1e-5) {'ok' if ok else 'FAIL'}; "
+        f"spectral u/v {spec:.3e} (atol {STEP_SPECTRAL_ATOL:g}); parameters "
+        f"{par:.3e} = {par / lr:.3f} lr (bound 2 lr + 1e-6), "
+        f"{flipped / n:.4f} of {n} elements further than lr (bound "
+        f"{SCOPE_FLIPPED})")
+    require(ok, f"scope-of-1 f32 step metrics: {want} vs {got}")
+    require(spec <= STEP_SPECTRAL_ATOL, "scope-of-1 f32 spectral vectors")
+    require(par <= 2 * lr + 1e-6,
+            "scope-of-1 f32 parameters within one Adam step")
+    require(flipped / n <= SCOPE_FLIPPED, "scope-of-1 f32 parameters share")
+
+
+def _one_process_bf16(state: dict, batch: dict, eps: list,
+                      lay) -> dict:
+    """The one-process bf16 step at the same global batch (plain, or under
+    the spatial scope `lay`): launches of its first step, then the median of
+    SP_STEPS timed steps after SP_WARMUP and the peak memory over all."""
+    task = _task(torch.bfloat16, DEV)
+    task.load_state_dict(state)
+    engine = Engine(task, seed=0, spatial=lay)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    _finite_metrics(engine.train_step(batch, eps=eps))
+    counts = _sp_counts()
+    for _ in range(SP_WARMUP):
+        engine.train_step(batch)
+    lat = []
+    for _ in range(SP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.train_step(batch)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    del task, engine
+    torch.cuda.empty_cache()
+    return {"counts": counts, "ms": lat, "peak": peak}
+
+
+def _bench_spatial(card: str) -> None:
+    """The bench's BENCH_SPATIAL=1 line once (a spatial group of 1 on the
+    one card): its ``spatial`` key and its launches per step (K2's split in
+    K1's place)."""
+    env = {**os.environ, "BENCH_SPATIAL": "1", "BENCH_E2E": "0",
+           "BENCH_LOADER_ONLY": "0", "BENCH_TRACE": "0",
+           "BENCH_STEPS": str(BENCH_CHILD_STEPS)}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vae_cyclegan_tpu_torch.bench"],
+        capture_output=True, text=True, env=env, timeout=BENCH_TIMEOUT)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "bench_spatial.log").write_text(proc.stdout + proc.stderr)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    require(proc.returncode == 0 and lines,
+            f"BENCH_SPATIAL=1 bench exited {proc.returncode}")
+    out = json.loads(lines[-1])
+    want = {**bench.UNPAIRED_STEP_LAUNCHES, "in_act": 0,
+            "in_stats": bench.UNPAIRED_STEP_LAUNCHES["in_act"],
+            "in_apply": bench.UNPAIRED_STEP_LAUNCHES["in_act"]}
+    say(f"BENCH_SPATIAL=1 line: {out['metric']} = {out['value']} "
+        f"{out['unit']}, spatial {out['spatial']}, launches per step "
+        f"{out['launches_per_step']}, {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    require(out["spatial"] is not None and out["spatial"]["size"] == 1,
+            f"BENCH_SPATIAL=1 line: spatial {out['spatial']}")
+    require(out["launches_per_step"] == want,
+            f"BENCH_SPATIAL=1 launches {out['launches_per_step']}, expected "
+            f"{want}")
+
+
+def phase_spatial(card: str) -> tuple:
+    """Phase 14: (a) K2's split kernels against their plain versions and
+    their times; (b) two gloo ranks on cuda:0, a spatial group of 2, the
+    paired cyclevaegan at full width: the f32 step at global batch SP_BATCH
+    against the one-process step under a spatial scope of 1 within
+    check_f32_step's bars, then the bf16 step's launches per rank, step
+    time and peak memory beside the one-process steps'; (c) the
+    BENCH_SPATIAL=1 line. Returns (the split kernels' errors, their times,
+    rank 0's launches of the bf16 step)."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    errs, times = phase_split_kernels(card)
+    rng = np.random.RandomState(80)
+    batch = {k: torch.as_tensor(_images(SP_BATCH, 81 + i))
+             for i, k in enumerate(("x", "y"))}
+    f32 = _task(torch.float32, DEV)
+    state = _dp_state(f32)
+    eps = [rng.randn(SP_BATCH, IMAGE // 16, IMAGE // 16, LATENT).astype(
+        np.float32) for _ in f32.train_passes]
+    _zero_counts()
+    want = _finite_metrics(Engine(f32, seed=0, spatial=spatial.single())
+                           .train_step({k: v.to(DEV) for k, v in
+                                        batch.items()}, eps=eps))
+    scope_launches = _sp_counts()
+    want_sd = {k: v.detach().cpu() for k, v in f32.state_dict().items()}
+    del f32
+    _scope_vs_plain_f32(state, batch, eps, want, want_sd, scope_launches)
+    torch.cuda.empty_cache()
+    dev_batch = {k: v.to(DEV) for k, v in batch.items()}
+    one = {"plain": _one_process_bf16(state, dev_batch, eps, None),
+           "scope 1": _one_process_bf16(state, dev_batch, eps,
+                                        spatial.single())}
+    del dev_batch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = str(Path(tmp) / "inputs.pt")
+        torch.save({"state": state, "batch": batch, "eps": eps}, inputs)
+        mp.start_processes(
+            _sp_rank, args=(f"tcp://127.0.0.1:{mesh.free_port()}", inputs,
+                            tmp), nprocs=SP_SIZE, start_method="spawn")
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(SP_SIZE)]
+    require([r["layout"] for r in ranks] == [(SP_SIZE, r)
+                                             for r in range(SP_SIZE)],
+            f"spatial layouts {[r['layout'] for r in ranks]}")
+    # (b) f32: the ranks against the one-process scope of 1
+    got = ranks[0]["f32"]["metrics"]
+    require(all(np.isfinite(v) for v in got.values())
+            and got["nan_detected"] == 0.0, f"spatial f32 step: {got}")
+    worst = max(abs(got[k] - v) / (abs(v) + 1e-3) for k, v in want.items())
+    ok = set(got) == set(want) and all(
+        abs(got[k] - v) <= STEP_METRIC_RTOL * abs(v) + 1e-5
+        for k, v in want.items())
+    lr = OptimConfig().lr
+    spec, par, n, beyond = 0.0, 0.0, 0, 0
+    for key, c in want_sd.items():
+        d = (ranks[0]["f32"]["state"][key] - c).abs()
+        if key.endswith(("weight_u", "weight_v")):
+            spec = max(spec, float(d.max()))
+            continue
+        par = max(par, float(d.max()))
+        n += d.numel()
+        beyond += int((d > 1e-6).sum())
+    same = all(torch.equal(ranks[0][p]["state"][k], ranks[1][p]["state"][k])
+               for p in ("f32", "bf16") for k in ranks[0][p]["state"])
+    say(f"check spatial f32 step, two gloo ranks on cuda:0 (cyclevaegan "
+        f"paired, full width, global batch {SP_BATCH}, TF32 off) vs the "
+        f"one-process step under a spatial scope of 1: metrics max relative "
+        f"error {worst:.3e} (rtol {STEP_METRIC_RTOL:g}, atol 1e-5) "
+        f"{'ok' if ok else 'FAIL'}; spectral u/v {spec:.3e} (atol "
+        f"{STEP_SPECTRAL_ATOL:g}); parameters {par:.3e} = {par / lr:.3f} lr "
+        f"(bound 2 lr + 1e-6), {beyond / n:.4f} of {n} elements beyond 1e-6 "
+        f"(bound {STEP_PARAM_SHARE}); ranks bit for bit equal: {same}")
+    require(ok, f"spatial f32 step metrics: {got} vs {want}")
+    require(spec <= STEP_SPECTRAL_ATOL, "spatial f32 spectral vectors")
+    require(par <= 2 * lr + 1e-6,
+            "spatial f32 parameters within one Adam step")
+    require(beyond / n <= STEP_PARAM_SHARE, "spatial f32 parameters share")
+    require(same, "spatial ranks' parameters differ")
+    # (b) bf16: launches per rank, time, memory
+    names = KERNEL_NAMES + SPLIT_NAMES
+    for label, r in (("one process, plain", one["plain"]),
+                     ("one process, spatial scope of 1", one["scope 1"])):
+        say(f"time spatial bf16 step {label} (cyclevaegan, global batch "
+            f"{SP_BATCH}): median {np.median(r['ms']):.2f} ms of {SP_STEPS} "
+            f"(min {min(r['ms']):.2f}, max {max(r['ms']):.2f}), peak memory "
+            f"{r['peak']:.0f} MiB, launches {dict(zip(names, r['counts']))} "
+            f"[{card}]")
+    for r, res in enumerate(ranks):
+        b = res["bf16"]
+        require(b["counts"] == SP_STEP_LAUNCHES,
+                f"spatial rank {r} bf16 step: {b['counts']} launches of "
+                f"{names}, expected {SP_STEP_LAUNCHES}")
+        require(all(np.isfinite(v) for v in b["metrics"].values())
+                and b["metrics"]["nan_detected"] == 0.0,
+                f"spatial rank {r} bf16 metrics {b['metrics']}")
+        say(f"time spatial bf16 step rank {r} of {SP_SIZE} on the one card "
+            f"(each rank half the rows of global batch {SP_BATCH}; the two "
+            f"ranks share the card): median {np.median(b['ms']):.2f} ms of "
+            f"{SP_STEPS} (min {min(b['ms']):.2f}, max {max(b['ms']):.2f}), "
+            f"peak memory {b['peak']:.0f} MiB = "
+            f"{b['peak'] / one['plain']['peak']:.3f} of the one-process "
+            f"step's; launches {dict(zip(names, b['counts']))} ok [{card}]")
+    require(one["scope 1"]["counts"] == SP_STEP_LAUNCHES,
+            f"spatial scope of 1: {one['scope 1']['counts']} launches")
+    _bench_spatial(card)
+    say(f"phase 14 (spatial parallelism): {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    return errs, times, dict(zip(SPLIT_NAMES, ranks[0]["bf16"]["counts"][-2:]))
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     card = phase_card()
     phase_build()
     errs = phase_kernels()
@@ -2907,12 +3494,16 @@ def main() -> None:
     phase_export_remat_trajectory(card)
     torch.cuda.empty_cache()
     phase_data_parallel(card)
+    torch.cuda.empty_cache()
+    sp_errs, sp_times, sp_launches = phase_spatial(card)
     # the kernels line: which phase drives each kernel. K1 (in_act), K3
     # (starved_conv, starved_conv_zero_same) and K4 (starved_conv_dw): the
     # serving and training paths (phases 4, 5, 7), the engine (10) and the
     # drivers (11), their launches from phase 5's three training steps; K2
-    # (in_act_tiled): the tiled training path (6); K5-K8: the prototypes'
-    # entry points (8), their launches from those runs
+    # (in_act_tiled): the tiled training path (6); K2's split (in_stats,
+    # in_apply): the spatial path (14), their launches from rank 0's bf16
+    # step; K5-K8: the prototypes' entry points (8), their launches from
+    # those runs
     conv_src = "vae_cyclegan_tpu_torch/csrc/starved_conv.cu"
     sources = {"conv_proto": "vae_cyclegan_tpu_torch/csrc/conv_proto.cu",
                "lowcin_conv_cm": "vae_cyclegan_tpu_torch/csrc/lowcin_conv.cu",
@@ -2956,6 +3547,19 @@ def main() -> None:
          # head + U4 + tail dw at batch 4
          **measured(times["starved_conv_dw"])},
     ] + [
+        {"name": name, "route": "cuda",
+         "source": "vae_cyclegan_tpu_torch/csrc/in_split.cu",
+         "replaces": replaced,
+         "launches": sp_launches[name],
+         "max_abs_err": sp_errs[name],
+         # the generator's K1 site at a rank's rows (S = 2), batch 4; the
+         # library calls torch.var_mean and F.batch_norm (eval mode)
+         **measured(sp_times[name]),
+         "library_ms": sp_times[name]["library_ms"]}
+        for name, replaced in (
+            ("in_stats", "vae_cyclegan_tpu/ops/instance_norm.py:138"),
+            ("in_apply", "vae_cyclegan_tpu/ops/instance_norm.py:157"))
+    ] + [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name],
          # the entry point's run at batch 24
@@ -2964,6 +3568,8 @@ def main() -> None:
          # summed over the prototype's shapes at batch 24 (K8: its probes)
          **measured(exp["times"][name])}
         for name in EXP_NAMES]}
+    say(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s "
+        f"[{card}]")
     print(json.dumps(summary), flush=True)
     print(f"card (name, power.limit): {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2971,10 +3577,34 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def trajectory_fault(specs) -> None:
+    """``chip_smoke.py --trajectory-fault <spec> [<spec> ...]``: phase 12's
+    trajectory check alone, clean (it must pass), then with each defect
+    seeded in the bf16 runs only, against the same f32 runs: a spec is
+    ``<LossConfig field>=<factor>`` (e.g. lambda_gan=1.1) or
+    ``d_score=<factor>`` (``_bf16_fault``). Exits 1 unless every fault is
+    caught."""
+    faults = []
+    for spec in specs:
+        field, _, factor = spec.partition("=")
+        faults.append((field, float(factor)))
+    card = phase_card()
+    phase_build()
+    _phase_trajectory(card, faults)
+    say(f"seeded faults {specs}: every one caught [{card}]")
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--k8-device"]:  # probe_device's child process
         kernels.load()
         print(json.dumps(probe_device_ms()), flush=True)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--trajectory-fault"] and len(sys.argv) > 2:
+        try:
+            trajectory_fault(sys.argv[2:])
+        except RuntimeError as exc:
+            print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+            sys.exit(1)
         sys.exit(0)
     try:
         main()

@@ -37,7 +37,7 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline",
               "e2e_breakdown", "e2e_config", "loader_only_images_per_sec",
               "h2d_bandwidth_mb_s"}
 PORT_KEYS = {"device", "syncs_per_step", "launches_per_step", "unified",
-             "h2d_pinned_mb_s", "h2d_pageable_mb_s"}
+             "spatial", "h2d_pinned_mb_s", "h2d_pageable_mb_s"}
 PHASE_KEYS = {"host_ms_per_batch", "h2d_wait_ms_per_batch",
               "dispatch_ms_per_batch", "final_sync_ms", "window_ms_per_batch"}
 
@@ -130,6 +130,26 @@ def test_bench_unified_runs_a_world_1_group(unified, want):
     assert rc == 0, err
     assert lines[0]["unified"] == want
     assert lines[0]["value"] > 0 and lines[0]["syncs_per_step"] == 1
+
+
+@pytest.mark.parametrize("value,want", [
+    ("1", {"size": 1, "lowering": "halo strips + in_stats/in_apply"}),
+    ("0", None)])
+def test_bench_spatial_runs_a_spatial_group_of_1(value, want):
+    """BENCH_SPATIAL=1 (bench.py's SP pricing) runs the step through the
+    spatial lowering at a spatial group of 1: the line says so and counts
+    K2's split kernels (0 on the CPU, where the plain versions run) in
+    K1's place; 0 (the default) the plain step."""
+    rc, lines, err = run_bench({**TINY, "BENCH_ARCH": "autoencoder",
+                                "BENCH_SPATIAL": value, "BENCH_TRACE": "0",
+                                "BENCH_E2E": "0", "BENCH_LOADER_ONLY": "0"})
+    assert rc == 0, err
+    assert lines[0]["spatial"] == want
+    assert lines[0]["value"] > 0 and lines[0]["syncs_per_step"] == 1
+    keys = set(bench.UNPAIRED_STEP_LAUNCHES)
+    if want is not None:
+        keys |= {"in_stats", "in_apply"}
+    assert lines[0]["launches_per_step"] == dict.fromkeys(keys, 0)
 
 
 def test_bench_without_a_card_fails():

@@ -27,6 +27,10 @@ from vae_cyclegan_tpu_torch.ops.instance_norm import (
     fused_reference,
     in_act_cuda,
     in_act_tiled_cuda,
+    in_apply_cuda,
+    in_apply_reference,
+    in_stats_cuda,
+    in_stats_reference,
     instance_norm_act,
     plane_plan,
     tiled_reference,
@@ -175,6 +179,40 @@ def test_in_kernels_hold_the_path_planes_on_chip(cuda, side, dtype):
 TILED_SHAPES = [(2, 64, 256, 256), (2, 128, 128, 128), (2, 256, 64, 64),
                 (2, 512, 32, 32), (2, 1024, 16, 16), (2, 3, 75, 67),
                 (3, 5, 64, 65), (1, 2, 9, 9)]
+
+
+# K2's split (csrc/in_split.cu) at a spatial group of 2's local shapes (the
+# K1 sites, the discriminator's, the tiled head site) and at edges: a plane
+# a warp takes whole (2 KB), one past it, planes that are not a multiple of
+# the vector, one plane smaller than a warp's vectors
+SPLIT_SHAPES = [(4, 1024, 8, 16), (4, 256, 16, 32), (4, 512, 8, 16),
+                (2, 64, 128, 256), (2, 3, 8, 64), (2, 3, 8, 65),
+                (3, 5, 31, 33), (1, 2, 3, 3)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("act,order", [("relu", "act_norm"),
+                                       ("leaky_relu", "norm_act"),
+                                       ("tanh", "act_norm"),
+                                       ("sigmoid", "norm_act"),
+                                       ("identity", "act_norm")])
+def test_split_kernels_match_plain(cuda, shape, dtype, act, order):
+    """in_stats against in_stats_reference (f32 sums in another order:
+    rtol 1e-4, atol 1e-4 sqrt(hw)), in_apply against in_apply_reference
+    with a spatial group of 2's count; each bit for bit on a second
+    launch; their composition at the plane's own count is K2's."""
+    x = _randn(shape, 30, cuda, dtype, 2.0) + 0.5
+    hw = shape[2] * shape[3]
+    st = in_stats_cuda(x, act, order)
+    torch.testing.assert_close(st, in_stats_reference(x, act, order),
+                               atol=1e-4 * hw ** 0.5, rtol=1e-4)
+    assert torch.equal(in_stats_cuda(x, act, order), st)
+    y = in_apply_cuda(x, st, 2.0 * hw, act, order)
+    _assert_close(y, in_apply_reference(x, st, 2.0 * hw, act, order))
+    assert torch.equal(in_apply_cuda(x, st, 2.0 * hw, act, order), y)
+    _assert_close(in_apply_cuda(x, st, float(hw), act, order),
+                  tiled_reference(x, act, order))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

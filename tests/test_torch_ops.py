@@ -437,9 +437,9 @@ def test_kernel_library_is_keyed_by_sources(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, the data-parallel ones (``parallel.dp``,
-    ``parallel.mesh``) among them, imports without pulling in JAX or the
-    JAX package (the card's machine has no JAX)."""
+    """Every module of the port, the parallel ones (``parallel.dp``,
+    ``parallel.mesh``, ``parallel.spatial``) among them, imports without
+    pulling in JAX or the JAX package (the card's machine has no JAX)."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import vae_cyclegan_tpu_torch as p\n"
@@ -448,8 +448,8 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'vae_cyclegan_tpu')]\n"
         "assert not bad, bad\n"
-        "assert {p.__name__ + '.parallel.dp', p.__name__ + '.parallel.mesh'}"
-        " <= set(sys.modules)\n"
+        "assert {p.__name__ + '.parallel.dp', p.__name__ + '.parallel.mesh',"
+        " p.__name__ + '.parallel.spatial'} <= set(sys.modules)\n"
         "print('ok', len([m for m in sys.modules if m.startswith(p.__name__)]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

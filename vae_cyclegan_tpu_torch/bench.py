@@ -22,10 +22,14 @@ card and gloo on the CPU, the same code an N-rank data-parallel run takes:
 the gradient mean's one all_reduce per optimizer and the metrics' mean; 0
 runs the plain step without a group; the line's ``unified`` says which).
 BENCH_DEVICE (cuda) names the torch device; the tests set it to cpu.
-``bench.py``'s BENCH_SPATIAL has no counterpart in the port yet (ROADMAP.md
-queue 1, item 7c), and BENCH_NO_PALLAS has none by design (item 10: no
-switch turns the kernels off, and no caller of the port needs a plain-only
-mode): if one is set, the bench fails.
+BENCH_SPATIAL (0; ``bench.py``'s "SP pricing", ``bench.py:165-184``): 1
+runs the step through the spatial lowering on the one card, a spatial
+group of 1 (``parallel.spatial.single()``: the halo strips at the K3/K4
+sites, K2's split kernels at the InstanceNorm kernel sites, no exchange),
+so the line prices what ``--spatial`` costs before any halo; the line's
+``spatial`` says which. BENCH_NO_PALLAS has no counterpart by design
+(ROADMAP.md item 10: no switch turns the kernels off, and no caller of the
+port needs a plain-only mode): if it is set, the bench fails.
 
 Phases: the step (3 warm-up steps, then the median of 3 windows of
 BENCH_STEPS steps, each window closed by reading G_loss; per-step times
@@ -56,7 +60,7 @@ from vae_cyclegan_tpu_torch.parallel import mesh
 REFERENCE_CPU_IMAGES_PER_SEC = 0.04589  # cyclevaegan, measured (BASELINE.md)
 ROOT = Path(__file__).resolve().parents[1]
 #: bench.py's switches that the port does not have
-UNPORTED = ("BENCH_SPATIAL", "BENCH_NO_PALLAS")
+UNPORTED = ("BENCH_NO_PALLAS",)
 #: kernel launches of one unpaired cyclevaegan train_step at 256x256, base
 #: 64, bf16, "auto" IN (tests/test_torch_bench.py holds them to the step's
 #: kernel sites): K1, K3 reflect, K3 zero_same, K4
@@ -95,6 +99,9 @@ def _device() -> torch.device:
             raise RuntimeError(
                 f"{name} is not ported (the port's bench has no counterpart "
                 f"of {', '.join(UNPORTED)}); unset it")
+    if os.environ.get("BENCH_SPATIAL", "0") not in ("0", "1"):
+        raise RuntimeError("BENCH_SPATIAL takes 0 or 1 (a spatial group of "
+                           "1 on the one card)")
     dev = torch.device(os.environ.get("BENCH_DEVICE", "cuda"))
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device (BENCH_DEVICE=cpu runs on the CPU)")
@@ -136,25 +143,34 @@ def _run_phase_subprocess(phase: str, timeout: float = 1200.0) -> dict:
         f"(rc={out.returncode}): {(out.stderr or out.stdout)[-300:]}")
 
 
-def _launch_counters() -> dict:
-    """name -> the wrapper whose ``launches`` counts that kernel."""
-    from vae_cyclegan_tpu_torch.ops.instance_norm import in_act_cuda
+def _launch_counters(spatial: bool = False) -> dict:
+    """name -> the wrapper whose ``launches`` counts that kernel; with
+    `spatial`, K2's split kernels too (BENCH_SPATIAL=1 runs them in K1's
+    place)."""
+    from vae_cyclegan_tpu_torch.ops.instance_norm import (
+        in_act_cuda,
+        in_apply_cuda,
+        in_stats_cuda,
+    )
     from vae_cyclegan_tpu_torch.ops.starved_conv import (
         dw_cuda,
         reflect_conv_cuda,
         zero_conv_cuda,
     )
 
-    return {"in_act": in_act_cuda, "starved_conv": reflect_conv_cuda,
-            "starved_conv_zero_same": zero_conv_cuda,
-            "starved_conv_dw": dw_cuda}
+    out = {"in_act": in_act_cuda, "starved_conv": reflect_conv_cuda,
+           "starved_conv_zero_same": zero_conv_cuda,
+           "starved_conv_dw": dw_cuda}
+    if spatial:
+        out.update(in_stats=in_stats_cuda, in_apply=in_apply_cuda)
+    return out
 
 
-def _one_step_counts(task, step_fn) -> tuple:
+def _one_step_counts(task, step_fn, spatial: bool = False) -> tuple:
     """(kernel launches, host reads of the loss) of one step: the launch
     counts set to 0 just before it, and the task's finite-loss gate (one
     host read of the loss per optimizer) counted."""
-    counters = _launch_counters()
+    counters = _launch_counters(spatial)
     reads = []
     gate = task._finite_update
 
@@ -177,6 +193,7 @@ def main() -> None:
     from vae_cyclegan_tpu_torch.config import ModelConfig
     from vae_cyclegan_tpu_torch.engine import Engine
     from vae_cyclegan_tpu_torch.models.tasks import create_task
+    from vae_cyclegan_tpu_torch.parallel import spatial
 
     arch = os.environ.get("BENCH_ARCH", "cyclevaegan")
     batch = _env_int("BENCH_BATCH", 24)
@@ -207,8 +224,12 @@ def main() -> None:
     if os.environ.get("BENCH_UNIFIED", "1") != "0":
         mesh.make_group(1, dev, 0, f"tcp://127.0.0.1:{mesh.free_port()}")
         unified = {"backend": dist.get_backend(), "world_size": 1}
+    sp = None
+    if os.environ.get("BENCH_SPATIAL", "0") == "1":
+        sp = {"size": 1, "lowering": "halo strips + in_stats/in_apply"}
     engine = Engine(task, seed=0,
-                    group=None if unified is None else dist.group.WORLD)
+                    group=None if unified is None else dist.group.WORLD,
+                    spatial=None if sp is None else spatial.single())
 
     if phase == "e2e":
         e2e = _bench_e2e(engine, batch, image_size)
@@ -232,7 +253,7 @@ def main() -> None:
     for _ in range(3):
         metrics = step()
     float(metrics["G_loss"])
-    launches, syncs = _one_step_counts(task, step)
+    launches, syncs = _one_step_counts(task, step, sp is not None)
 
     # throughput as the epoch loop runs: a window of steps, one read of the
     # loss at its end; the median of 3 windows
@@ -263,6 +284,7 @@ def main() -> None:
         "launches_per_step": launches,
         "remat": mc.remat,
         "unified": unified,
+        "spatial": sp,
     }
     if os.environ.get("BENCH_TRACE", "1") != "0":
         try:

@@ -31,8 +31,19 @@ Batches are the rank's shards (the loader's ``shard_index`` /
 ``shard_count``); a batch given whole to every rank (a global batch that
 does not divide the group, ``parallel.mesh.shard_rows``) runs replicated:
 ``replicated=True``, which the epoch loops read from the loader's
-``replicated_batches()``. Spatial parallelism (ROADMAP.md queue 1, item
-7c) has no counterpart yet.
+``replicated_batches()``.
+
+Spatial parallelism (JAX's ('data', 'spatial') mesh): ``Engine(task, seed,
+group, spatial=layout)`` with a ``parallel.spatial.Layout``
+(``parallel.mesh.make_spatial``) runs each step also under
+``parallel.spatial.spatial_scope``. Batches are the data rank's shards,
+whole images (the ranks of a spatial group load the same samples); after
+the on-card preparation (``device_aug`` crops and resizes whole frames)
+the engine keeps this rank's rows of every image (``mesh.shard_spatial``)
+and of the given noise, and gathers the images of ``eval_step`` and
+``generate`` along H within the spatial group, then along the batch over
+the data group. A layout of size 1 without a group (``spatial.single()``)
+runs the spatial lowering on one device (``BENCH_SPATIAL=1``).
 """
 
 from __future__ import annotations
@@ -49,7 +60,7 @@ import torch.distributed as dist
 
 from vae_cyclegan_tpu_torch.data.device_aug import augment_batch
 from vae_cyclegan_tpu_torch.models.tasks.base import Task
-from vae_cyclegan_tpu_torch.parallel import dp
+from vae_cyclegan_tpu_torch.parallel import dp, mesh, spatial
 
 try:
     from tqdm import tqdm
@@ -97,12 +108,20 @@ class Engine:
     and, with the epoch and the batch index, each validation batch's; every
     rank of `group` seeds them alike. `group`: a ``torch.distributed``
     process group to run data-parallel over, or None for the plain step.
+    `spatial`: this rank's ``parallel.spatial.Layout`` for a spatial step
+    (its data group and spatial group within `group`), or None.
     """
 
-    def __init__(self, task: Task, seed: int = 0, group=None):
+    def __init__(self, task: Task, seed: int = 0, group=None,
+                 spatial: Optional["spatial.Layout"] = None):
         self.task = task
         self.group = group
+        self.spatial = spatial
         self.world = 1 if group is None else dist.get_world_size(group)
+        #: the ranks that hold different samples (the spatial group's ranks
+        #: hold the same ones)
+        self.data_world = self.world // (1 if spatial is None
+                                         else spatial.size)
         self.device = task.device
         self.out_size = task.mc.image_size
         self.seed = seed
@@ -145,6 +164,38 @@ class Engine:
             return contextlib.nullcontext()
         return dp.dp_scope(self.group, replicated)
 
+    def _spatial_scope(self, replicated: bool):
+        """The spatial scope of one step (none without a layout)."""
+        if self.spatial is None:
+            return contextlib.nullcontext()
+        return spatial.spatial_scope(self.spatial, replicated)
+
+    def _rows(self, batch: Dict[str, torch.Tensor], eps: Optional[List]):
+        """(this spatial rank's rows of a prepared NHWC batch and of its
+        noise, whether the batch is replicated over the spatial group); the
+        batch and noise themselves without a layout."""
+        if self.spatial is None:
+            return batch, eps, False
+        part, rep = mesh.shard_spatial(batch, self.spatial)
+        if rep or eps is None:
+            return part, eps, rep
+        s, r = self.spatial.size, self.spatial.rank
+        return part, [e[:, r * (e.shape[1] // s):(r + 1) * (e.shape[1] // s)]
+                      for e in eps], rep
+
+    def _task_call(self, fn, batch, eps, **kw):
+        """`fn(rows, eps=..., **kw)` on this rank's rows, in the spatial
+        scope; returns (its result, whether the rows are replicated)."""
+        rows, eps, rep = self._rows(self._prep(batch), eps)
+        with self._spatial_scope(rep):
+            return fn(rows, eps=eps, **kw), rep
+
+    def _gather_images(self, t: torch.Tensor, rep: bool) -> torch.Tensor:
+        """An NHWC image output of this rank's rows gathered to the global
+        batch (``dp.gather``: along H, then along the batch)."""
+        with self._spatial_scope(rep):
+            return dp.gather(t, rows_dim=1)
+
     @staticmethod
     def _mean(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The metrics meaned across the ranks (within a scope)."""
@@ -157,25 +208,32 @@ class Engine:
         rank's rows); `replicated` where the batch is the whole global
         batch on every rank."""
         with self._scope(replicated):
-            return self._mean(self.task.train_step(
-                self._prep(batch), eps=eps, generator=self.generator))
+            m, _ = self._task_call(self.task.train_step, batch, eps,
+                                   generator=self.generator)
+            return self._mean(m)
 
     def eval_step(self, batch: Dict[str, torch.Tensor],
                   eps: Optional[List] = None,
                   generator: Optional[torch.Generator] = None,
                   replicated: bool = False) -> Dict[str, torch.Tensor]:
         with self._scope(replicated):
-            m = dict(self.task.eval_step(self._prep(batch), eps=eps,
-                                         generator=generator))
-            images = {k: dp.gather(m.pop(k)) for k in ("Gx", "Fy") if k in m}
+            m, rep = self._task_call(self.task.eval_step, batch, eps,
+                                     generator=generator)
+            m = dict(m)
+            images = {k: self._gather_images(m.pop(k), rep)
+                      for k in ("Gx", "Fy") if k in m}
             return {**self._mean(m), **images}
 
     def generate(self, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None,
                  eps=None, replicated: bool = False) -> torch.Tensor:
         with self._scope(replicated):
-            return dp.gather(self.task.generate(
-                self._prep(batch), generator=generator, eps=eps))
+            gx, rep = self._task_call(
+                lambda b, eps: self.task.generate(
+                    b, generator=generator, eps=None if eps is None
+                    else eps[0]),
+                batch, None if eps is None else [eps])
+            return self._gather_images(gx, rep)
 
     # -- epochs ---------------------------------------------------------------
 
@@ -244,7 +302,7 @@ class Engine:
                            if nxt is not None else None)
                 n_batches += 1
                 n_images += next(iter(batch.values())).shape[0] * (
-                    1 if rep else self.world)
+                    1 if rep else self.data_world)
                 for k, v in metrics.items():
                     metric_sums[k] = (v if k not in metric_sums
                                       else metric_sums[k] + v)
@@ -323,7 +381,7 @@ class Engine:
         avg = self._means(metric_sums, n_batches)
         # the last batch's x/y gathered as its Gx is (raw on-device-aug
         # batches have no host-side x/y images)
-        with self._scope(last_rep):
+        with self._scope(last_rep), self._spatial_scope(True):
             last_x, last_y = (
                 dp.gather(last_batch[k]) if k in last_batch else None
                 for k in ("x", "y"))

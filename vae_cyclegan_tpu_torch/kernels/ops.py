@@ -7,6 +7,9 @@ program that runs on the card launches the hand kernel:
 
   ``vct::in_act(x, act, order, eps)``        K1, ``csrc/in_act.cu``
   ``vct::in_act_tiled(x, act, order, eps)``  K2, ``csrc/in_act_tiled.cu``
+  ``vct::in_stats(x, act, order)``           K2's statistics pass and
+  ``vct::in_apply(x, stats, count, act,``    its apply pass, for planes split
+  ``order, eps)``                            over ranks, ``csrc/in_split.cu``
   ``vct::starved_conv(x, w, mode)``          K3, ``csrc/starved_conv.cu``,
                                              mode "reflect", "zero_same" or
                                              "zero"
@@ -14,10 +17,12 @@ program that runs on the card launches the hand kernel:
 
 The operator's dispatch picks the implementation by the device of its
 tensors: on a CUDA tensor the kernel's wrapper (``ops.instance_norm.
-in_act_cuda``, ``in_act_tiled_cuda``, ``ops.starved_conv.reflect_conv_cuda``
+in_act_cuda``, ``in_act_tiled_cuda``, ``in_stats_cuda``, ``in_apply_cuda``,
+``ops.starved_conv.reflect_conv_cuda``
 / ``zero_conv_cuda``, ``dw_cuda``), which launches the kernel or raises and
 counts its launches; on a CPU tensor the kernel's plain version
-(``fused_reference``, ``tiled_reference``, ``reflect_conv`` /
+(``fused_reference``, ``tiled_reference``, ``in_stats_reference``,
+``in_apply_reference``, ``reflect_conv`` /
 ``zero_conv``, ``dw_reference``); on the ``meta`` device the fake. The
 dispatch rules that decide whether a site takes a kernel at all
 (``slab_fits``, ``tiles_fit``, ``supported``, ``fwd_wins``) and
@@ -26,7 +31,7 @@ modules that own them.
 
 The operators are not differentiable themselves: the autograd Functions of
 ``ops.instance_norm`` and ``ops.starved_conv`` call them in their forward
-and backward. Importing this module registers the four operators (the ops
+and backward. Importing this module registers the six operators (the ops
 modules import it); load an exported program only after that.
 """
 
@@ -83,6 +88,49 @@ def _in_act_tiled_cuda(x: Tensor, act: str, order: str,
 @in_act_tiled.register_fake
 def _in_act_tiled_fake(x: Tensor, act: str, order: str,
                        eps: float) -> Tensor:
+    return _empty_like(x)
+
+
+# K2's split: the statistics and apply passes -------------------------------
+
+
+@torch.library.custom_op(f"{_LIB}::in_stats", mutates_args=(),
+                         device_types="cpu")
+def in_stats(x: Tensor, act: str, order: str) -> Tensor:
+    from vae_cyclegan_tpu_torch.ops.instance_norm import in_stats_reference
+    return in_stats_reference(x, act, order)
+
+
+@in_stats.register_kernel("cuda")
+def _in_stats_cuda(x: Tensor, act: str, order: str) -> Tensor:
+    from vae_cyclegan_tpu_torch.ops.instance_norm import in_stats_cuda
+    return in_stats_cuda(x.contiguous(), act, order)
+
+
+@in_stats.register_fake
+def _in_stats_fake(x: Tensor, act: str, order: str) -> Tensor:
+    return x.new_empty((x.shape[0], x.shape[1], 2), dtype=torch.float32)
+
+
+@torch.library.custom_op(f"{_LIB}::in_apply", mutates_args=(),
+                         device_types="cpu")
+def in_apply(x: Tensor, stats: Tensor, count: float, act: str, order: str,
+             eps: float) -> Tensor:
+    from vae_cyclegan_tpu_torch.ops.instance_norm import in_apply_reference
+    return in_apply_reference(x, stats, count, act, order, eps)
+
+
+@in_apply.register_kernel("cuda")
+def _in_apply_cuda(x: Tensor, stats: Tensor, count: float, act: str,
+                   order: str, eps: float) -> Tensor:
+    from vae_cyclegan_tpu_torch.ops.instance_norm import in_apply_cuda
+    return in_apply_cuda(x.contiguous(), stats.contiguous(), count, act,
+                         order, eps)
+
+
+@in_apply.register_fake
+def _in_apply_fake(x: Tensor, stats: Tensor, count: float, act: str,
+                   order: str, eps: float) -> Tensor:
     return _empty_like(x)
 
 

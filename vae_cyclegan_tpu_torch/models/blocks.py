@@ -13,6 +13,14 @@ held in float32; convs run in the block's ``dtype`` (the input's when None),
 with the bias added after the conv in that dtype. ``instance_norm`` is the
 configuration's InstanceNorm mode (``ops.instance_norm.instance_norm_act``),
 threaded through the blocks as the JAX package threads ``use_pallas``.
+
+Under spatial parallelism (``parallel.spatial``: a rank holds some rows of
+each image) the convs take their halo rows from the neighbours
+(``ReflectConv``: the stride-1 convs through ``starved_conv.
+spatial_reflect_conv``, the strided ones through ``reflect_conv.
+halo_conv``), and the D and U blocks' pixel (un)shuffle stays local: the D
+blocks refuse an odd local height (``parallel.spatial.refuse``); a shuffle
+doubles every local row and is always local.
 """
 
 from __future__ import annotations
@@ -33,6 +41,9 @@ from vae_cyclegan_tpu_torch.ops import (
     starved_reflect_conv,
 )
 from vae_cyclegan_tpu_torch.ops.instance_norm import ACTS
+from vae_cyclegan_tpu_torch.ops.reflect_conv import halo_conv
+from vae_cyclegan_tpu_torch.ops.starved_conv import spatial_reflect_conv
+from vae_cyclegan_tpu_torch.parallel import spatial
 
 _TORCH_ACT_NAMES = {
     "ReLU": "relu",
@@ -81,7 +92,13 @@ class ReflectConv(nn.Module):
 
     def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         k = w.shape[-1]
-        if self.stride == 1 and self.padding == k // 2:
+        same = self.stride == 1 and self.padding == k // 2
+        if spatial.current() is not None:
+            site = f"the k{k} s{self.stride} conv {tuple(w.shape)}"
+            if same:
+                return spatial_reflect_conv(x, w, site)
+            return halo_conv(x, w, self.stride, self.padding, site)
+        if same:
             return starved_reflect_conv(x, w)
         return F.conv2d(reflect_pad(x, self.padding), w, stride=self.stride)
 
@@ -98,6 +115,8 @@ class PlainReflectConv(ReflectConv):
     starved-conv kernel."""
 
     def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        if spatial.current() is not None:
+            return halo_conv(x, w, site=f"the D block conv {tuple(w.shape)}")
         return reflect_conv(x, w)
 
 
@@ -140,6 +159,11 @@ class DBlock(nn.Module):
                                      device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.current() is not None and x.shape[2] % 2:
+            cout = self.conv.weight.shape[0]
+            spatial.refuse(f"the D block {x.shape[1]}->{cout}'s pixel "
+                           "unshuffle", x.shape[2],
+                           "an even count to unshuffle locally")
         x = self.conv(pixel_unshuffle(x, 2))
         return instance_norm_act(x, act="relu", order="act_norm",
                                  mode=self.instance_norm)

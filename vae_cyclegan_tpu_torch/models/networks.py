@@ -33,7 +33,7 @@ from vae_cyclegan_tpu_torch.models.blocks import (
 )
 from vae_cyclegan_tpu_torch.ops import kaiming_normal_fan_out, spectral_normalize
 from vae_cyclegan_tpu_torch.ops.starved_conv import supported
-from vae_cyclegan_tpu_torch.parallel import dp
+from vae_cyclegan_tpu_torch.parallel import dp, spatial
 
 
 class Encoder(nn.Module):
@@ -94,6 +94,7 @@ class Decoder(nn.Module):
             return self.instance_norm
         u4, tail = self.model[4].conv.weight, self.model[5].conv.weight
         n, _, h, w = x.shape
+        h *= spatial.spatial_size()  # the global shape decides
         dtype = self.dtype or x.dtype
         cm = (supported((n, u4.shape[1], 2 * h, 2 * w), u4.shape, dtype)
               and supported((n, tail.shape[1], 2 * h, 2 * w), tail.shape,
@@ -205,7 +206,12 @@ class SpectralConv(nn.Module):
     A training call (``update_stats=True``) runs one power iteration and
     replaces the buffers with the new vectors as fresh tensors, so the
     spectral state threads through the calls in call order; an evaluation
-    call reads them."""
+    call reads them.
+
+    Under spatial parallelism the kernel covers the whole map, so each rank
+    convolves its rows with its rows of the normalized weight, the partials
+    are summed over the spatial group (``parallel.spatial.spatial_sum``) and
+    the bias is added once. The power iteration stays replicated."""
 
     def __init__(self, cin: int, features: int, kernel_size: int,
                  dtype: Optional[torch.dtype] = None, device=None,
@@ -238,7 +244,17 @@ class SpectralConv(nn.Module):
         if update_stats:
             self.weight_u, self.weight_v = u, v
         dtype = self.dtype or x.dtype
-        y = F.conv2d(x.to(dtype), w_sn.to(dtype))
+        lay = spatial.current()
+        if lay is not None:
+            h = x.shape[2]
+            if h * lay.size != w_sn.shape[2]:
+                spatial.refuse("the discriminator's spectral conv", h,
+                               f"{w_sn.shape[2] // lay.size} (its kernel's "
+                               "rows over the group)")
+            w_sn = w_sn[:, :, lay.rank * h:(lay.rank + 1) * h]
+            y = spatial.spatial_sum(F.conv2d(x.to(dtype), w_sn.to(dtype)))
+        else:
+            y = F.conv2d(x.to(dtype), w_sn.to(dtype))
         return y + self.bias.to(dtype)[:, None, None]
 
 

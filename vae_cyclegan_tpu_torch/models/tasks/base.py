@@ -217,7 +217,9 @@ class Task:
                generator: Optional[torch.Generator]) -> torch.Tensor:
         """The noise a variational pass over the NCHW image batch `v` would
         draw from `generator`: (B, latent_dim, H/16, W/16) f32, drawn as
-        ``networks.VariationalEncoderBlock`` draws it (``dp.dp_normal``)."""
+        ``networks.VariationalEncoderBlock`` draws it (``dp.dp_normal``:
+        under data or spatial parallelism this rank's batch rows and latent
+        rows of the global array, `v` being this rank's rows)."""
         n, _, h, w = v.shape
         return dp.dp_normal(generator, (n, self.mc.latent_dim, h // 16,
                                         w // 16), v.device)

@@ -48,6 +48,18 @@ formulas, as in JAX; ``_InActPlain`` (the big slabs, ``_fused_xla``) saves
 plain forwards keep the centered variance of the serving path and of the
 JAX package's CPU path; on the TPU, JAX's training forward of the big slabs
 uses the single-pass E[x^2] - mean^2 (``_stats``).
+
+Under spatial parallelism (``parallel.spatial``: a rank holds some rows of
+each plane) every site is ``_InActSpatial``: per plane the sums (s, ss) of
+this rank's rows, their all-reduce over the spatial group, then the apply
+with the plane's global element count, which is K2's pair of passes
+(``_stats_kernel``, ``_apply_kernel``) with the all-reduce between them.
+The sites that take K1 or K2 in one process (the rule read on the GLOBAL
+shape) run the split kernels (``csrc/in_split.cu``, ``vct::in_stats`` and
+``vct::in_apply``), the others their plain versions; both single-pass, as
+JAX's spatial path (``_fused_xla``, its ``_stats``). The backward is
+``_fused_xla_bwd`` in f32 with its two per-plane means packed into one
+all-reduce.
 """
 
 from __future__ import annotations
@@ -59,6 +71,7 @@ import torch
 
 from vae_cyclegan_tpu_torch import kernels
 from vae_cyclegan_tpu_torch.kernels import ops as kernel_ops
+from vae_cyclegan_tpu_torch.parallel import spatial
 
 EPS = 1e-5
 SLAB_BYTES = 1024 * 1024
@@ -286,6 +299,94 @@ def in_act_tiled_cuda(x: torch.Tensor, act: str, order: str,
 
 in_act_tiled_cuda.launches = 0
 
+def in_stats_reference(x: torch.Tensor, act: str, order: str) -> torch.Tensor:
+    """Plain version of the statistics pass (``_stats_kernel``): per (n, c)
+    plane of an NCHW tensor, in f32, (s, ss) = the sums of h and h^2, h =
+    act(x) for act_norm, else x; shape (N, C, 2)."""
+    h = x.float()
+    if order == "act_norm":
+        h = ACTS[act](h)
+    return torch.stack([h.sum(dim=(2, 3)), h.square().sum(dim=(2, 3))],
+                       dim=-1)
+
+
+def plane_moments(stats: torch.Tensor, count: float, eps: float):
+    """(mean, rsqrt(var + eps)) as (N, C, 1, 1) f32 from the sums (s, ss)
+    of planes of `count` elements: var = max(ss / count - mean^2, 0)."""
+    mu = stats[..., 0] / count
+    var = torch.clamp_min(stats[..., 1] / count - mu.square(), 0.0)
+    return mu[..., None, None], torch.rsqrt(var + eps)[..., None, None]
+
+
+def in_apply_reference(x: torch.Tensor, stats: torch.Tensor, count: float,
+                       act: str, order: str, eps: float = EPS) -> torch.Tensor:
+    """Plain version of the apply pass (``_apply_kernel``): from x, the
+    planes' sums (s, ss) (``in_stats_reference``, all-reduced) and the
+    whole plane's element count, y = (h - mean) * rsqrt(var + eps), the
+    activation after the norm for norm_act, one rounding to x's dtype.
+    ``in_apply_reference(x, in_stats_reference(x), H*W)`` is
+    ``tiled_reference(x)``."""
+    f = ACTS[act]
+    h = x.float()
+    if order == "act_norm":
+        h = f(h)
+    mu, r = plane_moments(stats, count, eps)
+    y = (h - mu) * r
+    if order == "norm_act":
+        y = f(y)
+    return y.to(x.dtype)
+
+
+def in_stats_cuda(x: torch.Tensor, act: str, order: str) -> torch.Tensor:
+    """Launch K2's statistics pass (``csrc/in_split.cu``) on a contiguous
+    NCHW CUDA tensor (float32 or bfloat16): (N, C, 2) f32 sums. Not
+    differentiable itself: raises under autograd."""
+    _check_kernel_input("in_stats", x, act, order)
+    n, c, h, w = x.shape
+    out = torch.empty((n, c, 2), dtype=torch.float32, device=x.device)
+    lib = kernels.load()
+    with torch.cuda.device(x.device):
+        rc = lib.vct_in_stats(x.data_ptr(), out.data_ptr(), n * c, h * w,
+                              DTYPE_CODES[x.dtype], _ACT_CODES[act],
+                              int(order == "act_norm"),
+                              torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "in_stats")
+    in_stats_cuda.launches += 1
+    return out
+
+
+in_stats_cuda.launches = 0
+
+
+def in_apply_cuda(x: torch.Tensor, stats: torch.Tensor, count: float,
+                  act: str, order: str, eps: float = EPS) -> torch.Tensor:
+    """Launch K2's apply pass (``csrc/in_split.cu``): y from a contiguous
+    NCHW CUDA tensor x (float32 or bfloat16), its planes' (N, C, 2) f32
+    sums over the whole plane and the whole plane's element count. Not
+    differentiable itself: raises under autograd."""
+    _check_kernel_input("in_apply", x, act, order)
+    n, c, h, w = x.shape
+    if (stats.dtype != torch.float32 or stats.device != x.device
+            or tuple(stats.shape) != (n, c, 2) or not stats.is_contiguous()):
+        raise ValueError(f"in_apply kernel: stats must be contiguous "
+                         f"float32 ({n}, {c}, 2) on {x.device}, got "
+                         f"{stats.dtype} {tuple(stats.shape)} on "
+                         f"{stats.device}")
+    y = torch.empty_like(x)
+    lib = kernels.load()
+    with torch.cuda.device(x.device):
+        rc = lib.vct_in_apply(x.data_ptr(), stats.data_ptr(), y.data_ptr(),
+                              n * c, h * w, float(count),
+                              DTYPE_CODES[x.dtype], _ACT_CODES[act],
+                              int(order == "act_norm"), float(eps),
+                              torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "in_apply")
+    in_apply_cuda.launches += 1
+    return y
+
+
+in_apply_cuda.launches = 0
+
 PLANE_REGIMES = ("warp", "block", "cluster", "stream")
 
 
@@ -361,6 +462,61 @@ class _InActPlain(torch.autograd.Function):
                 None)
 
 
+def _spatial_forward(x: torch.Tensor, act: str, order: str, eps: float,
+                     kernel: bool, lay: spatial.Layout):
+    """(y, mean, rsqrt) of a row-sharded site: this rank's sums, their
+    all-reduce over the spatial group, the apply with the global count;
+    the split kernels where `kernel`, else their plain versions."""
+    count = float(x.shape[2] * x.shape[3] * lay.size)
+    if kernel:
+        st = kernel_ops.in_stats(x, act, order)
+    else:
+        st = in_stats_reference(x, act, order)
+    st = spatial.reduce_sum(st, lay)
+    if kernel:
+        y = kernel_ops.in_apply(x, st, count, act, order, eps)
+    else:
+        y = in_apply_reference(x, st, count, act, order, eps)
+    mu, r = plane_moments(st, count, eps)
+    return y, mu, r
+
+
+class _InActSpatial(torch.autograd.Function):
+    """Every site under spatial parallelism: ``_spatial_forward``, saves (x,
+    mean, rsqrt); the backward is ``_fused_xla_bwd`` with its two per-plane
+    means summed over the spatial group in one all-reduce."""
+
+    @staticmethod
+    def forward(ctx, x, act, order, eps, kernel, lay):
+        y, mu, r = _spatial_forward(x, act, order, eps, kernel, lay)
+        ctx.save_for_backward(x, mu, r)
+        ctx.cfg = (act, order, lay)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mu, r = ctx.saved_tensors
+        act, order, lay = ctx.cfg
+        xf, gf = x.float(), g.float()
+        if order == "norm_act":
+            base = (xf - mu) * r
+            _, dact = _act_and_grad(act, base)
+            d = gf * dact
+        else:
+            h, dact = _act_and_grad(act, xf)
+            base = (h - mu) * r
+            d = gf
+        count = float(x.shape[2] * x.shape[3] * lay.size)
+        means = spatial.reduce_sum(torch.stack(
+            [d.sum(dim=(2, 3)), (d * base).sum(dim=(2, 3))], dim=-1),
+            lay) / count
+        dx = r * (d - means[..., 0, None, None]
+                  - base * means[..., 1, None, None])
+        if order == "act_norm":
+            dx = dx * dact
+        return dx.to(x.dtype), None, None, None, None, None
+
+
 def instance_norm_act(x: torch.Tensor, *, act: str = "relu",
                       order: str = "norm_act", eps: float = EPS,
                       mode: str = "auto") -> torch.Tensor:
@@ -373,6 +529,18 @@ def instance_norm_act(x: torch.Tensor, *, act: str = "relu",
     if mode not in MODES:
         raise ValueError(f"unknown instance norm mode {mode}")
     grad = torch.is_grad_enabled() and x.requires_grad
+    lay = spatial.current()
+    if lay is not None:
+        n, c, h, w = x.shape
+        glob = (n, c, h * lay.size, w)
+        kernel = ((mode == "tiled" and tiles_fit(glob))
+                  or (mode == "auto" and slab_fits(glob)))
+        if kernel:
+            kernels.note_site("in_stats", x.shape, x.dtype, act=act,
+                              order=order)
+        if not grad:
+            return _spatial_forward(x, act, order, eps, kernel, lay)[0]
+        return _InActSpatial.apply(x, act, order, eps, kernel, lay)
     if mode == "tiled":
         if tiles_fit(x.shape):
             kernels.note_site("in_act_tiled", x.shape, x.dtype, act=act,

@@ -29,6 +29,19 @@ a CUDA tensor that the rule selects launches the kernel or raises; CPU
 tensors take the plain versions, ``meta`` tensors the operators' fakes. A
 call that needs no gradient runs the forward without the Function.
 
+Under spatial parallelism (``parallel.spatial``) the dispatch reads the
+GLOBAL shape (H times the spatial group's size), and a conv it selects runs
+on a strip (``spatial_reflect_conv``): the p halo rows above and below this
+rank's rows (reflect rows at the image's true borders), zero rows up to a
+height ``supported`` takes (a multiple of 8, at least 32), the same
+``starved_reflect_conv``, and rows [p, p + h) of its output kept. Each kept
+row reads real rows only; the slice's gradient is zero outside them, so
+``dx_with_border_fold``'s row fold terms vanish (its column fold stays
+right) and K4 on (strip, zero-padded gradient) is exact too. So K3 reflect,
+K3 zero_same and K4 launch at the same sites as in one process, on
+(h + 2p) / h of the rows rounded up to 8 (136/128 = 1.0625 at 256x256 and a
+spatial group of 2); a K3 mode VALID in H would save the extra rows.
+
 The JAX package's channel-major entry points and ``VCT_*`` knobs steer TPU
 layouts and tiles; they have no counterpart here.
 """
@@ -44,7 +57,8 @@ from vae_cyclegan_tpu_torch import kernels
 from vae_cyclegan_tpu_torch.kernels import ops as kernel_ops
 from vae_cyclegan_tpu_torch.ops.instance_norm import DTYPE_CODES
 from vae_cyclegan_tpu_torch.ops.padding import reflect_pad
-from vae_cyclegan_tpu_torch.ops.reflect_conv import reflect_conv
+from vae_cyclegan_tpu_torch.ops.reflect_conv import halo_conv, reflect_conv
+from vae_cyclegan_tpu_torch.parallel import spatial
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # padding modes of csrc/starved_conv.cu
@@ -320,3 +334,32 @@ def starved_reflect_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _StarvedConv.apply(x, w)
     return _forward(x, w)
+
+
+def strip_rows(h: int, p: int) -> int:
+    """The height of a spatial strip of `h` own rows and `p` halo rows a
+    side: h + 2p rounded up to a multiple of 8, at least 32 (``supported``'s
+    rule)."""
+    return max(32, -(-(h + 2 * p) // 8) * 8)
+
+
+def spatial_reflect_conv(x: torch.Tensor, w: torch.Tensor,
+                         site: str = "a conv") -> torch.Tensor:
+    """This rank's rows of the reflect-SAME conv of a row-sharded image
+    (module docstring): the starved-conv kernels on a strip where
+    ``supported`` holds for the global shape, else ``halo_conv``. Raises,
+    naming `site`, where the strip cannot take the kernel the global shape
+    selects."""
+    lay = spatial.current()
+    n, c, h, wd = x.shape
+    if not supported((n, c, h * lay.size, wd), w.shape, x.dtype):
+        return halo_conv(x, w, site=site)
+    p = w.shape[-1] // 2
+    ext = spatial.halo(x, p, p, site)
+    fill = strip_rows(h, p) - ext.shape[2]
+    strip = F.pad(ext, (0, 0, 0, fill)) if fill else ext
+    if not supported(strip.shape, w.shape, x.dtype):
+        raise ValueError(f"spatial parallelism: {site}'s strip "
+                         f"{tuple(strip.shape)} cannot take the starved-conv "
+                         f"kernel its global shape selects")
+    return starved_reflect_conv(strip, w)[:, :, p:p + h]

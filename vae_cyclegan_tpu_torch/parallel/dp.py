@@ -25,6 +25,15 @@ engine sets its scope around the shard_map body). Inside it:
   * ``gather`` concatenates a per-rank batch output in rank order (JAX's
     ``out_specs=P('data')``).
 
+Under spatial parallelism (``parallel.spatial``: each rank of a spatial
+group holds some rows of its data shard's images) ``dp_normal`` draws the
+global array, (B_local * data ranks, C, H_local * S, ...), and keeps this
+rank's batch rows and its H rows, as GSPMD draws one global array for
+JAX's ('data', 'spatial') mesh; ``gather`` gathers a row-sharded output
+along H within the spatial group first, then along the batch over the data
+group. ``sync`` is unchanged: its world mean over data x spatial ranks is
+the gradient mean (``parallel.spatial``'s invariant).
+
 A replicated scope (``dp_scope(group, replicated=True)``: a batch that does
 not divide the group, given whole to every rank, ``mesh.shard_rows``) draws
 the noise unsliced and gathers nothing; the mean still runs, and keeps the
@@ -45,6 +54,8 @@ from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from vae_cyclegan_tpu_torch.parallel import spatial
 
 
 @dataclass(frozen=True)
@@ -100,30 +111,51 @@ def sync(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return out
 
 
+def _data_layout(scope: Optional[_Scope]):
+    """(data ranks, this rank's data index, their group) of a step: 1 group
+    of 1 outside a scope or in a replicated one; the spatial layout's data
+    group under spatial parallelism; else the scope's group."""
+    if scope is None or scope.replicated:
+        return 1, 0, None
+    lay = spatial.layout()
+    if lay is not None:
+        return lay.data_size, lay.data_rank, lay.data_group
+    return scope.world, scope.rank, scope.group
+
+
 def dp_normal(generator: Optional[torch.Generator], shape, device,
               dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``torch.randn(shape)`` that data parallelism leaves unchanged.
-    Outside a scope, or in a replicated one: the plain draw. Inside: the
-    global batch's noise, (B_local * world, ...), drawn from `generator`,
-    and this rank's rows [rank * B_local, (rank + 1) * B_local), the values
-    the one-process step draws for them."""
-    scope = _SCOPE.get()
+    """``torch.randn(shape)`` that data and spatial parallelism leave
+    unchanged. Outside a scope, or in a replicated one: the plain draw.
+    Inside: the global array's noise, (B_local * data ranks, C, H_local *
+    S, ...) for an NCHW `shape` (S the row-sharded spatial group's size, 1
+    without one), drawn from `generator`, and this rank's batch rows and H
+    rows, the values the one-process step draws for them."""
     shape = tuple(shape)
-    if scope is None or scope.replicated or scope.world == 1:
+    data, d_rank, _ = _data_layout(_SCOPE.get())
+    lay = spatial.current()
+    s, s_rank = (1, 0) if lay is None else (lay.size, lay.rank)
+    if data == 1 and s == 1:
         return torch.randn(shape, generator=generator, device=device,
                            dtype=dtype)
     b = shape[0]
-    g = torch.randn((b * scope.world, *shape[1:]), generator=generator,
-                    device=device, dtype=dtype)
-    return g[scope.rank * b:(scope.rank + 1) * b]
+    full = (b * data, *shape[1:]) if s == 1 else (
+        b * data, shape[1], shape[2] * s, *shape[3:])
+    g = torch.randn(full, generator=generator, device=device, dtype=dtype)
+    g = g[d_rank * b:(d_rank + 1) * b]
+    if s > 1:
+        h = shape[2]
+        g = g[:, :, s_rank * h:(s_rank + 1) * h]
+    return g
 
 
-def gather(t: torch.Tensor) -> torch.Tensor:
+def gather(t: torch.Tensor, rows_dim: Optional[int] = None) -> torch.Tensor:
     """A per-rank batch output concatenated along dim 0 in rank order (the
-    global batch); outside a scope or in a replicated one, `t` itself."""
-    scope = _SCOPE.get()
-    if scope is None or scope.replicated or scope.world == 1:
-        return t
-    parts = [torch.empty_like(t) for _ in range(scope.world)]
-    dist.all_gather(parts, t.contiguous(), group=scope.group)
-    return torch.cat(parts)
+    global batch); outside a scope or in a replicated one, `t` itself.
+    Under spatial parallelism a row-sharded output (`rows_dim`: its H
+    dimension) is first gathered along H within the spatial group, and the
+    batch is then gathered over the data group. Both go through
+    ``spatial.gather_over``, the one exchange every backend takes."""
+    if rows_dim is not None:
+        t = spatial.gather_rows(t, rows_dim)
+    return spatial.gather_over(t, *_data_layout(_SCOPE.get()), dim=0)

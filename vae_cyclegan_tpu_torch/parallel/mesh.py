@@ -23,6 +23,18 @@ computes the full batch, and the mean of their equal gradients leaves them
 as they were up to rounding), with one ``RuntimeWarning`` worded as
 ``mesh.py``'s. The multi-host loader drops a partial final batch instead
 (``data.loader``).
+
+Spatial parallelism (``make_spatial``, JAX's ``make_mesh(n, spatial=S)``):
+the N ranks form N/S data groups x S spatial ranks, adjacent ranks sharing
+a spatial group (rank r is spatial rank r % S of data group r // S), so a
+group's halo exchanges stay between neighbouring devices. Every rank
+creates one process group per spatial group and one per data group (the
+ranks with the same spatial index), all in the same order. The loader
+shards by data rank and data size (the ranks of a spatial group read the
+same samples), and the engine slices each image's rows by spatial rank
+(``shard_height``: a height that does not divide S is replicated over the
+group, with one warning worded as ``mesh.py``'s). As in JAX, spatial
+sharding is one host's: ``--multihost`` with S > 1 raises.
 """
 
 from __future__ import annotations
@@ -35,7 +47,10 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from vae_cyclegan_tpu_torch.parallel.spatial import Layout, single
+
 _warned_replicated_batch = False
+_warned_replicated_spatial = False
 _cpu_group = None
 
 
@@ -227,3 +242,72 @@ def shard_batch(batch: Mapping, rank_: Optional[int] = None,
     lo, hi = shard_rows(first.shape[0], rank_, world, key)
     return ({k: v[lo:hi] for k, v in batch.items()},
             hi - lo == first.shape[0] and world > 1)
+
+
+def check_spatial(spatial: int, world: int, multihost: bool = False) -> None:
+    """JAX's refusals of a spatial size (``make_mesh``, ``shard_batch``): a
+    size below 1, a size that does not divide the `world` ranks, and
+    spatial sharding across hosts."""
+    if spatial < 1:
+        raise ValueError(f"spatial must be >= 1, got {spatial}")
+    if multihost and spatial > 1:
+        raise NotImplementedError(
+            "spatial sharding is single-host (ICI) only; use a pure "
+            "data-parallel mesh across hosts")
+    if world % spatial:
+        raise ValueError(f"spatial axis size {spatial} does not divide the "
+                         f"{world}-device mesh")
+
+
+def make_spatial(spatial: int, multihost: bool = False) -> Layout:
+    """This rank's (data x spatial) layout over the default group (or one
+    process's ``single()`` without a group, where `spatial` must be 1):
+    N / S data groups of S adjacent ranks. Every rank calls it, at the same
+    point: it creates every group, in the same order. Raises as
+    ``check_spatial``."""
+    world, r = world_size(), rank()
+    check_spatial(spatial, world, multihost)
+    if not initialized():
+        return single()
+    data = world // spatial
+    spatial_groups = [dist.new_group(list(range(d * spatial,
+                                                (d + 1) * spatial)))
+                      for d in range(data)]
+    data_groups = [dist.new_group(list(range(s, world, spatial)))
+                   for s in range(spatial)]
+    return Layout(spatial, r % spatial,
+                  spatial_groups[r // spatial] if spatial > 1 else None,
+                  data, r // spatial,
+                  data_groups[r % spatial] if data > 1 else None)
+
+
+def shard_height(rows: int, s_rank: int, size: int,
+                 key: str = "x") -> Tuple[int, int]:
+    """[lo, hi) of spatial rank `s_rank`'s rows of an image height `rows`:
+    equal contiguous shards where `size` divides it, else every row (the
+    image replicated over the group), with one RuntimeWarning worded as
+    ``mesh.py``'s."""
+    global _warned_replicated_spatial
+    if rows % size == 0:
+        local = rows // size
+        return s_rank * local, (s_rank + 1) * local
+    if not _warned_replicated_spatial:
+        _warned_replicated_spatial = True
+        warnings.warn(
+            f"dim 1 (height) of '{key}' ({rows}) does not divide the "
+            f"{size}-device spatial axis: '{key}' is replicated over "
+            f"'spatial' and spatial parallelism is forfeited for it.",
+            RuntimeWarning, stacklevel=2)
+    return 0, rows
+
+
+def shard_spatial(batch: Mapping, lay: Layout) -> Tuple[Dict, bool]:
+    """(this spatial rank's rows of the NHWC images of a device batch,
+    whether they are replicated over the spatial group), by
+    ``shard_height`` on the first image's height; tensors of other ranks
+    pass whole."""
+    key, first = next((k, v) for k, v in batch.items() if v.dim() == 4)
+    lo, hi = shard_height(first.shape[1], lay.rank, lay.size, key)
+    return ({k: v[:, lo:hi] if v.dim() == 4 else v
+             for k, v in batch.items()},
+            hi - lo == first.shape[1] and lay.size > 1)

@@ -30,9 +30,16 @@ a CUDA device the task raises. The JAX flags map as follows:
   --multihost        this process is one rank of a group ``torchrun``
                      describes (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
                      MASTER_PORT), on ``cuda:LOCAL_RANK``
+  --spatial S        spatial parallelism (JAX's 2-D mesh): the N ranks form
+                     N/S data x S spatial; each rank holds H/S rows of every
+                     image of its data shard and every rank the parameters
+                     (``parallel.spatial``); S must divide N (``ValueError
+                     ... does not divide``), and S > 1 with --multihost
+                     raises (spatial sharding is one host's, as in JAX)
 
 Under either, each rank loads its slice of every global batch (the loader's
-``shard_index``/``shard_count``) and the task means (loss, gradients)
+``shard_index``/``shard_count``, by data rank: the ranks of a spatial group
+load the same samples) and the task means (loss, gradients)
 across the ranks (``parallel.dp``). A global batch the ranks do not divide
 is given whole to every rank under --num_devices (JAX's single-host rule,
 one warning) and dropped under --multihost (JAX's multi-host rule). Only
@@ -45,10 +52,11 @@ on every host. A SIGTERM to any rank (to the launching process under
 --num_devices, which passes it on) stops every rank after the same step
 (``utils.preempt.AgreedStop``), and the primary saves ``checkpoint_preempt/``.
 
-Refused, each with an error naming its ROADMAP.md item: ``--spatial`` above
-1 (queue 1, item 7c: spatial parallelism, not ported yet) and
-``--no_pallas`` (item 10: no switch turns the port's kernels off, and no
-caller of the port needs a plain-only mode).
+Refused, with an error naming its ROADMAP.md item: ``--no_pallas`` (item
+10: no switch turns the port's kernels off, and no caller of the port needs
+a plain-only mode). Under --spatial the kernels stay on: K3 and K4 run on
+each rank's row strips and K2's split kernels (``csrc/in_split.cu``) at the
+InstanceNorm sites that take K1 or K2 in one process.
 """
 
 from __future__ import annotations
@@ -112,9 +120,6 @@ def device_for(platform) -> torch.device:
 def refuse_unported(args) -> None:
     """Raise on the JAX flags the port has no counterpart of yet."""
     waits = []
-    if args.spatial > 1:
-        waits.append("--spatial > 1 (ROADMAP.md queue 1, item 7c: spatial "
-                     "parallelism)")
     if args.no_pallas:
         waits.append("--no_pallas (ROADMAP.md queue 1, item 10: no switch "
                      "turns the port's kernels off, and no caller of the "
@@ -125,12 +130,14 @@ def refuse_unported(args) -> None:
 
 def _shard_kwargs(args) -> dict:
     """Data parallelism: each rank loads its slice of every global batch
-    (the loader's shard_index/shard_count), with JAX's rule for a batch the
-    ranks do not divide: replicate on one host, drop across hosts."""
-    world = mesh.world_size()
-    if world == 1:
+    (the loader's shard_index/shard_count, by data rank and data size: the
+    ranks of a spatial group load the same samples), with JAX's rule for a
+    batch the ranks do not divide: replicate on one host, drop across
+    hosts."""
+    data = mesh.world_size() // args.spatial
+    if data == 1:
         return {}
-    return {"shard_index": mesh.rank(), "shard_count": world,
+    return {"shard_index": mesh.rank() // args.spatial, "shard_count": data,
             "ragged": "drop" if args.multihost else "replicate"}
 
 
@@ -298,16 +305,19 @@ def main(args):
         raise RuntimeError("no CUDA device (the driver runs on the card by "
                            "default); pass --platform cpu to run on the CPU")
     if args.multihost:
+        mesh.check_spatial(args.spatial, 1, multihost=True)
         rank_device = mesh.init_from_env(device)
         try:
             return _run_rank(rank_device, args)
         finally:
             mesh.destroy()
     n = mesh.resolve_devices(args.num_devices, device)
+    mesh.check_spatial(args.spatial, n)
     if n > 1:
         output_dir = (Path(args.resume).parent if args.resume
                       else _new_run_dir(args))
-        print(f"Data parallelism: spawning {n} ranks on {device.type}")
+        print(f"{'Data and spatial' if args.spatial > 1 else 'Data'} "
+              f"parallelism: spawning {n} ranks on {device.type}")
         mesh.spawn(_run_rank, n, device, args, output_dir)
         return output_dir
     return _run_rank(device, args)
@@ -430,8 +440,15 @@ def _train(args, device, output_dir, writer, train_loader, test_loader,
     task = build_task(args, device)
     primary = mesh.is_primary()
     progress = not args.quiet and primary
+    layout = None
+    if args.spatial > 1:
+        layout = mesh.make_spatial(args.spatial, args.multihost)
+        print(f"Mesh: {layout.data_size} data x {layout.size} spatial "
+              f"device(s) (the kernels stay on: K3/K4 on row strips, K2's "
+              f"split at the InstanceNorm kernel sites)")
     engine = Engine(task, seed=args.seed,
-                    group=dist.group.WORLD if mesh.world_size() > 1 else None)
+                    group=dist.group.WORLD if mesh.world_size() > 1 else None,
+                    spatial=layout)
 
     # Pretrained Double* -> Cycle* transfer (reference train.py:443-460)
     if args.pretrained_doubleae is not None and args.pretrained_doublevae is not None:
@@ -615,8 +632,11 @@ def build_parser() -> argparse.ArgumentParser:
                              "each (default: every visible CUDA device; "
                              "CPU ranks over gloo with --platform cpu)")
     parser.add_argument("--spatial", type=int, default=1,
-                        help="Spatial-parallel axis size: not ported above "
-                             "1 (ROADMAP.md queue 1, item 7c)")
+                        help="Spatial-parallel axis size: shard the image "
+                             "height over this many ranks per data-parallel "
+                             "replica (num_devices/spatial x spatial); the "
+                             "halo rows and the InstanceNorm moments cross "
+                             "between the ranks (parallel.spatial)")
     parser.add_argument("--remat", action="store_true",
                         help="Rematerialize generator forwards "
                              "(torch.utils.checkpoint) to fit device memory")
