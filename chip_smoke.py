@@ -154,22 +154,26 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               at the spatial path's local shapes (a spatial group of 2 at
               256x256, batch 4: the K1 sites' 1024 x 8 x 16, the
               discriminator's 256 x 16 x 32 and 512 x 8 x 16, the tiled head
-              site's 64 x 128 x 256), bit for bit on a second launch, timed
-              beside their plain versions and their library calls
-              (torch.var_mean; F.batch_norm in eval mode for the identity
-              apply) with their byte bounds; the one-process f32 step under
-              a spatial scope of 1 (the K3/K4 strips, the split kernels)
-              against the plain one-process f32 step (tests/
-              test_torch_spatial.py's one-step bars); two spawned gloo ranks
-              on the one card as one spatial group (``parallel.mesh.make_spatial``, ``Engine(...,
-              spatial=)``), the paired cyclevaegan at full width, global
-              batch 4: the f32 step against the one-process step under a
-              spatial scope of 1 (check_f32_step's bars), the ranks bit for
-              bit equal; the bf16 step's launches per rank (K3 reflect 12,
-              zero_same 14, K4 18, in_stats and in_apply 46 each, K1 and K2
-              none), each rank's step time and peak memory beside the
-              one-process steps' (plain and scope of 1); the bench's
-              ``BENCH_SPATIAL=1`` line once
+              site's 64 x 128 x 256, that also at batch 1 and 24), bit for
+              bit on a second launch, the apply's moments against
+              plane_moments, timed beside their plain versions, their
+              library calls (torch.var_mean; F.batch_norm in eval mode for
+              the identity apply) and, where build/split_prev/ holds an
+              earlier in_split.cu, that pair, with their byte bounds; the
+              one-process f32 step under a spatial scope of 1 (the K3/K4
+              strips, the split kernels) against the plain one-process f32
+              step (tests/test_torch_spatial.py's one-step bars); two
+              spawned gloo ranks on the one card as one spatial group
+              (``parallel.mesh.make_spatial``, ``Engine(..., spatial=)``),
+              the paired cyclevaegan at full width, global batch 4: the f32
+              step against the one-process step under a spatial scope of 1
+              (check_f32_step's bars), the ranks bit for bit equal; the bf16
+              step's launches per rank (K3 reflect 12, zero_same 14, K4 18,
+              in_stats and in_apply 46 each, K1 and K2 none), each rank's
+              step time and peak memory beside the one-process steps' (plain
+              and scope of 1, and the same two under "tiled", where the
+              scope of 1 launches in_stats and in_apply 96 times each, at
+              K2's sites); the bench's ``BENCH_SPATIAL=1`` line once
 
 Each main path (the serving requests, each training run) is driven with
 every launch count set to 0 just before it and read just after it. Any
@@ -181,6 +185,7 @@ and the one before that is the ``{"kernels": [...]}`` summary.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import json
 import os
@@ -223,6 +228,8 @@ from vae_cyclegan_tpu_torch.host_cost import host_us
 from vae_cyclegan_tpu_torch.inference import run_inference
 from vae_cyclegan_tpu_torch.models.tasks import ARCHITECTURES, create_task
 from vae_cyclegan_tpu_torch.ops.instance_norm import (
+    _ACT_CODES,
+    DTYPE_CODES,
     EPS,
     ORDERS,
     fused_reference,
@@ -233,6 +240,7 @@ from vae_cyclegan_tpu_torch.ops.instance_norm import (
     in_stats_cuda,
     in_stats_reference,
     instance_norm_act,
+    plane_moments,
     plane_plan,
     slab_fits,
     tiled_reference,
@@ -775,6 +783,7 @@ def phase_card() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
+    start_prev_split_build()
     kernels.load()
     say(f"build: {kernels.library_path().name} ready in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {kernels.build_seconds})")
@@ -3069,11 +3078,17 @@ def phase_data_parallel(card: str) -> None:
 # the spatial path's local shapes (a spatial group of 2 at 256x256, batch 4:
 # each rank holds half the rows): the generator's K1 sites (1024 x 16 x 16),
 # the discriminator's (256 x 32 x 32 and 512 x 16 x 16) and the tiled
-# configuration's head site (64 x 256 x 256), (shape, act, order); the first
-# gives the summary line's times, as the identity site does for K1
+# configuration's head site (64 x 256 x 256), (shape, act, order); the head
+# site also at batch 1 (few planes to fill the card with) and at batch 24
+# (bench.py's; x is 100 MB a rank in bf16, beyond the 50 MB L2, so every
+# launch reads it from device memory: SPLIT_BOUND_SITE, where the share of the
+# bound is read). The first gives the summary line's times, as the identity
+# site does for K1
 SPLIT_WRAPPERS = (in_stats_cuda, in_apply_cuda)
 SPLIT_NAMES = ("in_stats", "in_apply")
 SP_SIZE = 2
+HEAD_SITE = (BASE, IMAGE // 2, IMAGE)
+SPLIT_BOUND_SITE = (24, *HEAD_SITE)
 SPLIT_SITES = [
     ((PATH_BATCH, 16 * BASE, IMAGE // 32, IMAGE // 16), "identity",
      "act_norm"),
@@ -3082,18 +3097,44 @@ SPLIT_SITES = [
      "norm_act"),
     ((PATH_BATCH, 8 * BASE, IMAGE // 32, IMAGE // 16), "leaky_relu",
      "norm_act"),
-    ((PATH_BATCH, BASE, IMAGE // 2, IMAGE), "relu", "norm_act"),
+    ((PATH_BATCH, *HEAD_SITE), "relu", "norm_act"),
+    ((1, *HEAD_SITE), "relu", "norm_act"),
+    (SPLIT_BOUND_SITE, "relu", "norm_act"),
 ]
 # the sums' bar: f32 sums of up to 32768 elements in another order
 SPLIT_STATS_RTOL = 1e-4
+# the apply's moments against plane_moments of the same sums on the card: the
+# mean bit for bit (both multiply by 1 / count rounded to f32), the rsqrt
+# within this many units in the last place (both take rsqrtf of the same
+# value where torch.rsqrt is rsqrtf)
+MOMENT_ULPS = 2
+# the profiler's names of the split kernels (csrc/in_split.cu), and of the
+# earlier pair's
+SPLIT_KEYS = {"in_stats": ("split::stats_lanes", "split::stats_cta",
+                           "split::stats_stream"),
+              "in_apply": ("split::apply_lanes", "split::apply_cta",
+                           "split::apply_stream")}
+PREV_SPLIT_KEYS = {"in_stats": ("split::stats_kernel<",),
+                   "in_apply": ("split::apply_kernel<",)}
+# An earlier version of csrc/in_split.cu, timed beside the current pair in
+# phase 14 where PREV_SPLIT_DIR holds it with the two headers it includes as
+# they were (e.g. `git show 264f572:vae_cyclegan_tpu_torch/csrc/<file>` for
+# in_split.cu, in_plane.cuh and common.cuh). The directory lies under the
+# git-ignored build/, so a checkout of the repository times the current pair
+# alone.
+PREV_SPLIT_DIR = Path("build/split_prev")
+_prev_split = {}
 # f32 operations per element: stats (activation, add, multiply-add), apply
 # (activation, subtract, multiply, activation)
 STATS_OPS, APPLY_OPS = 3, 4
 # the two-rank steps' global batch, and a rank's launches per paired
 # cyclevaegan bf16 step in WRAPPERS + SPLIT_WRAPPERS order: the K3/K4 sites
-# of one process, K2's split at its 46 K1 sites, no K1 or K2
+# of one process, K2's split at its 46 K1 sites, no K1 or K2; under "tiled",
+# at K2's 96 sites
 SP_BATCH = PATH_BATCH
 SP_STEP_LAUNCHES = (0, 0) + STEP_LAUNCHES[2:] + (STEP_LAUNCHES[0],) * 2
+SP_TILED_STEP_LAUNCHES = ((0, 0) + TILED_STEP_LAUNCHES[2:]
+                          + (TILED_STEP_LAUNCHES[1],) * 2)
 SP_WARMUP, SP_STEPS = 1, 3
 # the scope of 1 against the plain step (two formulas: single-pass
 # statistics, the strips): tests/test_torch_spatial.py's one-step bars,
@@ -3107,94 +3148,230 @@ def _sp_counts() -> tuple:
 
 
 def _split_bound(shape, dtype, apply: bool) -> dict:
-    """A split pass over one NCHW tensor: x read once (and y written once
-    for the apply), the 8-byte sums of each plane read or written once."""
+    """A split pass over one NCHW tensor: x read once and the 8-byte sums of
+    each plane written once (stats), or x and the sums read once and y and
+    the 8-byte moments of each plane written once (apply)."""
     n = int(np.prod(shape))
     size = torch.empty((), dtype=dtype).element_size()
     planes = shape[0] * shape[1]
-    return bound((2 if apply else 1) * n * size + 8 * planes,
+    return bound((2 if apply else 1) * (n * size + 8 * planes),
                  (APPLY_OPS if apply else STATS_OPS) * n, "f32")
+
+
+def start_prev_split_build() -> None:
+    """Starts nvcc on PREV_SPLIT_DIR/in_split.cu, where it is there, beside
+    the kernels' own build (prev_split waits for it)."""
+    src = PREV_SPLIT_DIR / "in_split.cu"
+    if not src.exists() or _prev_split:
+        return
+    so = PREV_SPLIT_DIR / "in_split_prev.so"
+    _prev_split["so"] = so
+    _prev_split["proc"] = subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(so),
+         str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def prev_split():
+    """(stats, apply) of the earlier split pair, as in_stats_cuda and
+    in_apply_cuda call them but without their checks or counts, or None
+    where PREV_SPLIT_DIR holds no source."""
+    if "proc" not in _prev_split:
+        return None
+    if "lib" not in _prev_split:
+        log = _prev_split["proc"].communicate()[0]
+        (OUT_DIR / "build_split_prev.log").write_text(log)
+        require(_prev_split["proc"].returncode == 0,
+                f"the earlier split pair does not build: {log[-2000:]}")
+        lib = ctypes.CDLL(str(_prev_split["so"]))
+        lib.vct_in_stats.argtypes = kernels._SIGNATURES["vct_in_stats"][1]
+        ll, f = ctypes.c_longlong, ctypes.c_float
+        p = ctypes.c_void_p
+        lib.vct_in_apply.argtypes = [p, p, p, ll, ll, f, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int, f, p]
+        _prev_split["lib"] = lib
+    lib = _prev_split["lib"]
+    codes = _ACT_CODES
+
+    def stats(x, act, order):
+        n, c, h, w = x.shape
+        out = torch.empty((n, c, 2), dtype=torch.float32, device=x.device)
+        kernels.check(lib.vct_in_stats(
+            x.data_ptr(), out.data_ptr(), n * c, h * w, DTYPE_CODES[x.dtype],
+            codes[act], int(order == "act_norm"),
+            torch.cuda.current_stream().cuda_stream), "in_stats (earlier)")
+        return out
+
+    def apply(x, st, count, act, order):
+        n, c, h, w = x.shape
+        y = torch.empty_like(x)
+        kernels.check(lib.vct_in_apply(
+            x.data_ptr(), st.data_ptr(), y.data_ptr(), n * c, h * w,
+            float(count), DTYPE_CODES[x.dtype], codes[act],
+            int(order == "act_norm"), float(EPS),
+            torch.cuda.current_stream().cuda_stream), "in_apply (earlier)")
+        return y
+
+    return stats, apply
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in units of the last place between two f32
+    tensors of one sign."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max())
+
+
+def check_split_site(shape, act: str, order: str, dtype, seed: int,
+                     errs: dict) -> None:
+    """in_stats and in_apply at one site against their plain versions, each
+    a second time bit for bit; the apply with the global count of a spatial
+    group of 2, its moments against plane_moments of the same sums;
+    composed at the plane's own count, against tiled_reference."""
+    x = randn(shape, seed, dtype, 2.0) + 0.5
+    hw = shape[2] * shape[3]
+    label = f"{shape} {act}/{order} {str(dtype)[6:]}"
+    st = in_stats_cuda(x, act, order)
+    want = in_stats_reference(x, act, order)
+    errs["in_stats"] = max(errs["in_stats"], compare(
+        f"in_stats {label}", st, want,
+        tol=(SPLIT_STATS_RTOL * hw ** 0.5, SPLIT_STATS_RTOL)))
+    require(torch.equal(in_stats_cuda(x, act, order), st),
+            f"in_stats {label}: second launch not bit for bit")
+    count = float(hw * SP_SIZE)
+    y, moments = in_apply_cuda(x, want, count, act, order)
+    errs["in_apply"] = max(errs["in_apply"], compare(
+        f"in_apply {label} (count {count:g})", y,
+        in_apply_reference(x, want, count, act, order)[0]))
+    y2, moments2 = in_apply_cuda(x, want, count, act, order)
+    require(torch.equal(y2, y) and torch.equal(moments2, moments),
+            f"in_apply {label}: second launch not bit for bit")
+    mu, r = plane_moments(want, count, EPS)
+    gap = ulps(moments[1], r)
+    say(f"check in_apply {label} moments vs plane_moments: mean bit for bit "
+        f"{torch.equal(moments[0], mu)}, rsqrt {gap} ulp (bar "
+        f"{MOMENT_ULPS})")
+    require(torch.equal(moments[0], mu) and gap <= MOMENT_ULPS,
+            f"in_apply {label}: moments")
+    compare(f"in_stats + in_apply {label} (count {hw}) vs tiled_reference",
+            in_apply_cuda(x, in_stats_cuda(x, act, order), float(hw), act,
+                          order)[0], tiled_reference(x, act, order))
+
+
+def time_split_site(card: str, shape, act: str, order: str, seed: int,
+                    prev) -> dict:
+    """bf16 times of both passes at one site: CUDA-event ms per call of the
+    wrappers, their plain versions, the library calls (torch.var_mean; for
+    the identity apply F.batch_norm in eval mode over the (1, N*C, H, W)
+    view, from the same moments) and the earlier pair where there is one;
+    the profiler's median device ms per launch of each kernel; the byte
+    bounds. Returns {pass: numbers}."""
+    b16 = torch.bfloat16
+    x = randn(shape, seed, b16, 2.0) + 0.5
+    st = in_stats_reference(x, act, order)
+    count = float(shape[2] * shape[3] * SP_SIZE)
+    fns = {
+        "in_stats": lambda: in_stats_cuda(x, act, order),
+        "stats plain": lambda: in_stats_reference(x, act, order),
+        "torch.var_mean": lambda: torch.var_mean(x, dim=(2, 3),
+                                                 correction=0),
+        "in_apply": lambda: in_apply_cuda(x, st, count, act, order),
+        "apply plain": lambda: in_apply_reference(x, st, count, act, order)}
+    if act == "identity":
+        mu = (st[..., 0] / count).reshape(-1)
+        var = (st[..., 1] / count - mu.view(st.shape[:2]).square()
+               ).clamp_min(0.0).reshape(-1)
+        xv = x.view(1, -1, *shape[2:])
+        fns["F.batch_norm"] = lambda: F.batch_norm(
+            xv, mu, var, training=False, eps=EPS).view(shape)
+        compare(f"F.batch_norm {shape} (the apply's library call)",
+                fns["F.batch_norm"](), fns["apply plain"]()[0],
+                TOL[torch.bfloat16])
+    if prev is not None:
+        fns["in_stats earlier"] = lambda: prev[0](x, act, order)
+        fns["in_apply earlier"] = lambda: prev[1](x, st, count, act, order)
+    iters = 50 if x.numel() < 2 ** 24 else 10
+    ms = time_calls(fns, iters)
+    out = {}
+    for name, plain, lib, apply in (
+            ("in_stats", "stats plain", "torch.var_mean", False),
+            ("in_apply", "apply plain", "F.batch_norm", True)):
+        t = {"ms": ms[name], "plain_ms": ms[plain],
+             "library_ms": ms.get(lib),
+             "device_ms": kernel_device_ms(fns[name], iters,
+                                           SPLIT_KEYS[name]),
+             **_split_bound(shape, b16, apply)}
+        if prev is not None:
+            t["earlier_ms"] = ms[f"{name} earlier"]
+            t["earlier_device_ms"] = kernel_device_ms(
+                fns[f"{name} earlier"], iters, PREV_SPLIT_KEYS[name])
+        out[name] = t
+        lib_text = (f", {lib} {t['library_ms']:.4f}"
+                    if t["library_ms"] is not None else "")
+        prev_text = (f"; the earlier pair {t['earlier_ms']:.4f} / "
+                     f"{ms_text(t['earlier_device_ms'])}"
+                     if prev is not None else "")
+        share = (t["bound_ms"] / t["device_ms"]
+                 if t["device_ms"] else None)
+        say(f"time {name} {shape} {act}/{order} bf16 (CUDA-event ms per "
+            f"call / profiler device ms per launch): {t['ms']:.4f} / "
+            f"{ms_text(t['device_ms'])}{prev_text}; plain "
+            f"{t['plain_ms']:.4f}{lib_text}; bound {t['bound_ms']:.5f} "
+            f"({t['bound_by']}), device time = "
+            f"{ms_text(share, 3)} of the bound's rate [{card}]")
+    del x
+    return out
 
 
 def phase_split_kernels(card: str) -> tuple:
     """in_stats and in_apply against their plain versions (f32 and bf16) at
-    SPLIT_SITES, each a second time bit for bit; the apply with the global
-    count of a spatial group of 2. Then times at every site (bf16: kernel,
-    plain, and the library calls: torch.var_mean for the stats, and for the
-    apply at the identity sites F.batch_norm in eval mode) and the summary
-    site's device times and byte bounds. Returns
+    SPLIT_SITES (check_split_site), then their bf16 times at every site
+    (time_split_site), beside the earlier pair's where PREV_SPLIT_DIR holds
+    it; the three readings the kernels are held to are printed: at the
+    summary site each wrapper's CUDA-event time against its library call,
+    at SPLIT_BOUND_SITE each device time against twice its byte bound, at
+    every site each device time against the earlier pair's. Returns
     (largest errors, the summary site's times)."""
     errs = dict.fromkeys(SPLIT_NAMES, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
         for i, (shape, act, order) in enumerate(SPLIT_SITES):
-            x = randn(shape, 1400 + i, dtype, 2.0) + 0.5
-            hw = shape[2] * shape[3]
-            label = f"{shape} {act}/{order} {str(dtype)[6:]}"
-            st = in_stats_cuda(x, act, order)
-            want = in_stats_reference(x, act, order)
-            errs["in_stats"] = max(errs["in_stats"], compare(
-                f"in_stats {label}", st, want,
-                tol=(SPLIT_STATS_RTOL * hw ** 0.5, SPLIT_STATS_RTOL)))
-            require(torch.equal(in_stats_cuda(x, act, order), st),
-                    f"in_stats {label}: second launch not bit for bit")
-            count = float(hw * SP_SIZE)
-            y = in_apply_cuda(x, want, count, act, order)
-            errs["in_apply"] = max(errs["in_apply"], compare(
-                f"in_apply {label} (count {count:g})", y,
-                in_apply_reference(x, want, count, act, order)))
-            require(torch.equal(in_apply_cuda(x, want, count, act, order), y),
-                    f"in_apply {label}: second launch not bit for bit")
-            del x, y
-    b16 = torch.bfloat16
-    times = {}
+            check_split_site(shape, act, order, dtype, 1400 + i, errs)
+            torch.cuda.empty_cache()
+    prev = prev_split()
+    sites = []
     for i, (shape, act, order) in enumerate(SPLIT_SITES):
-        x = randn(shape, 1500 + i, b16, 2.0) + 0.5
-        st = in_stats_reference(x, act, order)
-        count = float(shape[2] * shape[3] * SP_SIZE)
-        fns = {
-            "in_stats": lambda: in_stats_cuda(x, act, order),
-            "stats plain": lambda: in_stats_reference(x, act, order),
-            "torch.var_mean": lambda: torch.var_mean(
-                x, dim=(2, 3), correction=0),
-            "in_apply": lambda: in_apply_cuda(x, st, count, act, order),
-            "apply plain": lambda: in_apply_reference(x, st, count, act,
-                                                      order)}
-        if act == "identity":
-            # one library call computes the identity apply: batch_norm in
-            # eval mode over the (1, N*C, H, W) view, from the same moments
-            mu = (st[..., 0] / count).reshape(-1)
-            var = (st[..., 1] / count - mu.view(st.shape[:2]).square()
-                   ).clamp_min(0.0).reshape(-1)
-            xv = x.view(1, -1, *shape[2:])
-            fns["F.batch_norm"] = lambda: F.batch_norm(
-                xv, mu, var, training=False, eps=EPS).view(shape)
-            compare(f"F.batch_norm {shape} (the apply's library call)",
-                    fns["F.batch_norm"](), fns["apply plain"](),
-                    TOL[torch.bfloat16])
-        iters = 50 if x.numel() < 2 ** 24 else 10
-        ms = time_calls(fns, iters)
-        bs = _split_bound(shape, b16, False)["bound_ms"]
-        ba = _split_bound(shape, b16, True)["bound_ms"]
-        say(f"time split site {shape} {act}/{order} bf16 (CUDA events per "
-            "call): " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
-            + f"; bounds stats {bs:.5f}, apply {ba:.5f} ms (bytes) [{card}]")
-        if i == 0:
-            for name, key, plain, lib, apply in (
-                    ("in_stats", "split::stats_kernel<", "stats plain",
-                     "torch.var_mean", False),
-                    ("in_apply", "split::apply_kernel<", "apply plain",
-                     "F.batch_norm", True)):
-                dev = launch_device_ms(fns[name], iters, key)
-                if dev is not None and dev > DEVICE_SLACK * ms[name]:
-                    dev = None
-                times[name] = {"ms": ms[name], "plain_ms": ms[plain],
-                               "library_ms": ms[lib],
-                               "device_ms": dev,
-                               **_split_bound(shape, b16, apply)}
-                say(f"time {name} {shape} {act}/{order} bf16: device "
-                    f"{ms_text(dev)} ms per launch [{card}]")
-        del x
-    return errs, times
+        sites.append((shape, act, order,
+                      time_split_site(card, shape, act, order, 1500 + i,
+                                      prev)))
+        torch.cuda.empty_cache()
+    summary = sites[0][3]
+    for name, lib in (("in_stats", "torch.var_mean"),
+                      ("in_apply", "F.batch_norm")):
+        t = summary[name]
+        say(f"reading {name} at {sites[0][0]}: CUDA-event {t['ms']:.4f} ms "
+            f"per call against {lib} {t['library_ms']:.4f}: "
+            f"{'no slower' if t['ms'] <= t['library_ms'] else 'SLOWER'} "
+            f"[{card}]")
+    for shape, act, order, t in sites:
+        for name in SPLIT_NAMES:
+            dev, bnd = t[name]["device_ms"], t[name]["bound_ms"]
+            if shape == SPLIT_BOUND_SITE:
+                say(f"reading {name} at {shape} (cold in L2): device "
+                    f"{ms_text(dev)} ms against twice the byte bound "
+                    f"{2 * bnd:.5f}: "
+                    f"{'within' if dev and dev <= 2 * bnd else 'BEYOND'} "
+                    f"[{card}]")
+            if prev is not None:
+                old = t[name]["earlier_device_ms"]
+                say(f"reading {name} at {shape}: device {ms_text(dev)} ms "
+                    f"against the earlier pair's {ms_text(old)}: "
+                    + (f"{dev / old:.3f}x" if dev and old
+                       else "not measured") + f" [{card}]")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "split_times.json").write_text(json.dumps(
+        [{"shape": shape, "act": act, "order": order, **t}
+         for shape, act, order, t in sites], indent=1))
+    return errs, summary
 
 
 def _sp_rank(rank: int, init: str, inputs: str, out: str) -> None:
@@ -3291,12 +3468,12 @@ def _scope_vs_plain_f32(state: dict, batch: dict, eps: list, want: dict,
     require(flipped / n <= SCOPE_FLIPPED, "scope-of-1 f32 parameters share")
 
 
-def _one_process_bf16(state: dict, batch: dict, eps: list,
-                      lay) -> dict:
+def _one_process_bf16(state: dict, batch: dict, eps: list, lay,
+                      instance_norm: str = "auto") -> dict:
     """The one-process bf16 step at the same global batch (plain, or under
     the spatial scope `lay`): launches of its first step, then the median of
     SP_STEPS timed steps after SP_WARMUP and the peak memory over all."""
-    task = _task(torch.bfloat16, DEV)
+    task = _task(torch.bfloat16, DEV, instance_norm=instance_norm)
     task.load_state_dict(state)
     engine = Engine(task, seed=0, spatial=lay)
     torch.cuda.synchronize()
@@ -3382,7 +3559,10 @@ def phase_spatial(card: str) -> tuple:
     dev_batch = {k: v.to(DEV) for k, v in batch.items()}
     one = {"plain": _one_process_bf16(state, dev_batch, eps, None),
            "scope 1": _one_process_bf16(state, dev_batch, eps,
-                                        spatial.single())}
+                                        spatial.single()),
+           "tiled": _one_process_bf16(state, dev_batch, eps, None, "tiled"),
+           "tiled scope 1": _one_process_bf16(state, dev_batch, eps,
+                                              spatial.single(), "tiled")}
     del dev_batch
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3433,7 +3613,10 @@ def phase_spatial(card: str) -> tuple:
     # (b) bf16: launches per rank, time, memory
     names = KERNEL_NAMES + SPLIT_NAMES
     for label, r in (("one process, plain", one["plain"]),
-                     ("one process, spatial scope of 1", one["scope 1"])):
+                     ("one process, spatial scope of 1", one["scope 1"]),
+                     ("one process, tiled, plain", one["tiled"]),
+                     ("one process, tiled, spatial scope of 1",
+                      one["tiled scope 1"])):
         say(f"time spatial bf16 step {label} (cyclevaegan, global batch "
             f"{SP_BATCH}): median {np.median(r['ms']):.2f} ms of {SP_STEPS} "
             f"(min {min(r['ms']):.2f}, max {max(r['ms']):.2f}), peak memory "
@@ -3456,6 +3639,12 @@ def phase_spatial(card: str) -> tuple:
             f"step's; launches {dict(zip(names, b['counts']))} ok [{card}]")
     require(one["scope 1"]["counts"] == SP_STEP_LAUNCHES,
             f"spatial scope of 1: {one['scope 1']['counts']} launches")
+    # under "tiled" the split pair takes each of K2's sites
+    require(one["tiled"]["counts"] == TILED_STEP_LAUNCHES + (0, 0),
+            f"tiled one-process step: {one['tiled']['counts']} launches")
+    require(one["tiled scope 1"]["counts"] == SP_TILED_STEP_LAUNCHES,
+            f"tiled spatial scope of 1: {one['tiled scope 1']['counts']} "
+            f"launches of {names}, expected {SP_TILED_STEP_LAUNCHES}")
     _bench_spatial(card)
     say(f"phase 14 (spatial parallelism): {time.perf_counter() - t0:.1f} s "
         f"[{card}]")
@@ -3554,7 +3743,8 @@ def main() -> None:
          "max_abs_err": sp_errs[name],
          # the generator's K1 site at a rank's rows (S = 2), batch 4; the
          # library calls torch.var_mean and F.batch_norm (eval mode)
-         **measured(sp_times[name]),
+         **measured({k: v for k, v in sp_times[name].items()
+                     if not k.startswith("earlier")}),
          "library_ms": sp_times[name]["library_ms"]}
         for name, replaced in (
             ("in_stats", "vae_cyclegan_tpu/ops/instance_norm.py:138"),

@@ -23,6 +23,7 @@ from vae_cyclegan_tpu_torch.experiments.common import reflect_conv_reference
 from vae_cyclegan_tpu_torch.models.tasks import create_task
 from vae_cyclegan_tpu_torch.ops.instance_norm import (
     ACTS,
+    EPS,
     ORDERS,
     fused_reference,
     in_act_cuda,
@@ -32,6 +33,7 @@ from vae_cyclegan_tpu_torch.ops.instance_norm import (
     in_stats_cuda,
     in_stats_reference,
     instance_norm_act,
+    plane_moments,
     plane_plan,
     tiled_reference,
 )
@@ -182,12 +184,15 @@ TILED_SHAPES = [(2, 64, 256, 256), (2, 128, 128, 128), (2, 256, 64, 64),
 
 
 # K2's split (csrc/in_split.cu) at a spatial group of 2's local shapes (the
-# K1 sites, the discriminator's, the tiled head site) and at edges: a plane
-# a warp takes whole (2 KB), one past it, planes that are not a multiple of
-# the vector, one plane smaller than a warp's vectors
+# K1 sites, the discriminator's, the tiled head site at batch 2 and 1) and at
+# edges: a plane a warp takes whole (2 KB), one past it, planes that are not a
+# multiple of the vector, one plane smaller than a warp's vectors, three
+# planes of 64 KB in bf16 / 128 KB in f32 (the stats' looping CTA, the
+# apply's 4 or 8 CTAs a plane) and planes over 256 KB (regime (d))
 SPLIT_SHAPES = [(4, 1024, 8, 16), (4, 256, 16, 32), (4, 512, 8, 16),
-                (2, 64, 128, 256), (2, 3, 8, 64), (2, 3, 8, 65),
-                (3, 5, 31, 33), (1, 2, 3, 3)]
+                (2, 64, 128, 256), (1, 64, 128, 256), (2, 3, 8, 64),
+                (2, 3, 8, 65), (3, 5, 31, 33), (1, 2, 3, 3),
+                (1, 3, 128, 256), (1, 2, 384, 384)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -208,11 +213,39 @@ def test_split_kernels_match_plain(cuda, shape, dtype, act, order):
     torch.testing.assert_close(st, in_stats_reference(x, act, order),
                                atol=1e-4 * hw ** 0.5, rtol=1e-4)
     assert torch.equal(in_stats_cuda(x, act, order), st)
-    y = in_apply_cuda(x, st, 2.0 * hw, act, order)
-    _assert_close(y, in_apply_reference(x, st, 2.0 * hw, act, order))
-    assert torch.equal(in_apply_cuda(x, st, 2.0 * hw, act, order), y)
-    _assert_close(in_apply_cuda(x, st, float(hw), act, order),
+    y, moments = in_apply_cuda(x, st, 2.0 * hw, act, order)
+    _assert_close(y, in_apply_reference(x, st, 2.0 * hw, act, order)[0])
+    y2, moments2 = in_apply_cuda(x, st, 2.0 * hw, act, order)
+    assert torch.equal(y2, y) and torch.equal(moments2, moments)
+    _assert_close(in_apply_cuda(x, st, float(hw), act, order)[0],
                   tiled_reference(x, act, order))
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in units of the last place between two f32
+    tensors of one sign."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long())
+               .abs().max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_split_apply_moments_match_plane_moments(cuda, shape, dtype):
+    """in_apply's moments, (2, N, C, 1, 1) f32, against plane_moments of
+    the same sums on the card, with a spatial group of 3's count (not a
+    power of two): the mean bit for bit (both multiply by 1 / count rounded
+    to f32), the rsqrt within 2 ulp (rsqrtf in both, where torch.rsqrt
+    takes it; its error bound is 2 ulp)."""
+    x = _randn(shape, 31, cuda, dtype, 2.0) + 0.5
+    count = 3.0 * shape[2] * shape[3]
+    st = in_stats_cuda(x, "relu", "act_norm")
+    _, moments = in_apply_cuda(x, st, count, "relu", "act_norm")
+    assert moments.shape == (2, *shape[:2], 1, 1)
+    assert moments.dtype == torch.float32
+    mu, r = plane_moments(st, count, EPS)
+    torch.cuda.synchronize()
+    assert torch.equal(moments[0], mu)
+    assert _ulps(moments[1], r) <= 2
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

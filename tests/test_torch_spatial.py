@@ -305,7 +305,7 @@ def test_split_plain_versions_match_jax_two_pallas_calls(act, order):
             interpret=True)).transpose(0, 3, 1, 2)
         xt = torch.from_numpy(x)
         hw = shape[2] * shape[3]
-        got = inn.in_apply_reference(
+        got, _ = inn.in_apply_reference(
             xt, inn.in_stats_reference(xt, act, order), float(hw), act,
             order)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

@@ -1,5 +1,6 @@
 // The shared core of the two InstanceNorm + activation kernels (in_act.cu,
-// in_act_tiled.cu): per (n, c) plane of an NCHW tensor, in f32, the statistics
+// in_act_tiled.cu), whose plan and pieces K2's split pair (in_split.cu) takes
+// too: per (n, c) plane of an NCHW tensor, in f32, the statistics
 // of h (h = act(x) for act_norm, else x), then y = (h - mean) * rsqrt(var +
 // eps), the activation after the norm for norm_act, and one rounding to the
 // input type at the end. Var picks the variance: Centered (mean first, then
@@ -219,13 +220,21 @@ __device__ __forceinline__ void unpack_h(const Raw<T, V>& r, float* v, int act,
   if (act_norm) activate_all<V>(v, act);
 }
 
-__device__ __forceinline__ float2 warp_sum2(float2 v) {
+// The sums over each group of L adjacent lanes (L a power of two up to 32),
+// by a butterfly: every lane of a group holds its group's sums. All lanes of
+// the warp take part.
+template <int L>
+__device__ __forceinline__ float2 lanes_sum2(float2 v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
+  for (int o = L / 2; o > 0; o >>= 1) {
     v.x += __shfl_xor_sync(0xffffffffu, v.x, o);
     v.y += __shfl_xor_sync(0xffffffffu, v.y, o);
   }
-  return v;  // every lane holds the same sums
+  return v;
+}
+
+__device__ __forceinline__ float2 warp_sum2(float2 v) {
+  return lanes_sum2<32>(v);  // every lane holds the same sums
 }
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -316,18 +325,16 @@ struct Held<false, T, V, kLoads> {
   }
 };
 
-// One thread's part of a plane held in registers: the elements
-// begin + (t + P * k) * V + j (k < E / V, j < V) below `end`. Takes the
-// plane's (mean, rsqrt(var + eps)) through `sums` from h = act(x) (act_norm)
-// or x, then normalizes the held values and stores them.
-template <class Var, int V, int E, bool kPacked, typename T, class Sums>
-__device__ __forceinline__ void resident_plane(
-    const T* __restrict__ x, T* __restrict__ y, long long begin, long long end,
-    int t, int P, int act, int act_norm, float count, float eps,
-    const Sums& sums, bool cluster) {
-  constexpr int kLoads = E / V;
-  Held<kPacked, T, V, kLoads> held;
-  int n = 0;  // the valid loads are a prefix: k < n
+// A thread's loads of a plane into `held`: the elements begin + (t + P * k)
+// * V + j (k < kLoads, j < V) below `end`, every load issued before any is
+// used, so kLoads of them are in flight. Returns n: the valid loads are a
+// prefix, k < n.
+template <bool kPacked, typename T, int V, int kLoads>
+__device__ __forceinline__ int load_held(Held<kPacked, T, V, kLoads>& held,
+                                         const T* __restrict__ x,
+                                         long long begin, long long end, int t,
+                                         int P, int act, int act_norm) {
+  int n = 0;
 #pragma unroll
   for (int k = 0; k < kLoads; ++k) {
     const long long i = begin + ((long long)t + (long long)P * k) * V;
@@ -336,6 +343,13 @@ __device__ __forceinline__ void resident_plane(
       n = k + 1;
     }
   }
+  return n;
+}
+
+// The sums (s, ss) of the n held loads in load order; ss only with kSquares.
+template <bool kSquares, bool kPacked, typename T, int V, int kLoads>
+__device__ __forceinline__ float2 held_sums(
+    const Held<kPacked, T, V, kLoads>& held, int n, int act, int act_norm) {
   float2 acc = make_float2(0.f, 0.f);
 #pragma unroll
   for (int k = 0; k < kLoads; ++k) {
@@ -345,10 +359,45 @@ __device__ __forceinline__ void resident_plane(
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         acc.x += v[j];
-        if (!Var::kCentered) acc.y += v[j] * v[j];
+        if (kSquares) acc.y += v[j] * v[j];
       }
     }
   }
+  return acc;
+}
+
+// y = (h - st.x) * st.y, the activation after it for norm_act, of the n held
+// loads, stored where load_held read them.
+template <bool kPacked, typename T, int V, int kLoads>
+__device__ __forceinline__ void store_held(
+    const Held<kPacked, T, V, kLoads>& held, int n, T* __restrict__ y,
+    long long begin, int t, int P, float2 st, int act, int act_norm) {
+#pragma unroll
+  for (int k = 0; k < kLoads; ++k) {
+    if (k < n) {
+      float v[V];
+      held.get(k, v, act, act_norm);
+#pragma unroll
+      for (int j = 0; j < V; ++j) v[j] = (v[j] - st.x) * st.y;
+      if (!act_norm) activate_all<V>(v, act);
+      const long long i = begin + ((long long)t + (long long)P * k) * V;
+      store_vec<V>(y + i, v);
+    }
+  }
+}
+
+// One thread's part of a plane held in registers (load_held). Takes the
+// plane's (mean, rsqrt(var + eps)) through `sums` from h = act(x) (act_norm)
+// or x, then normalizes the held values and stores them.
+template <class Var, int V, int E, bool kPacked, typename T, class Sums>
+__device__ __forceinline__ void resident_plane(
+    const T* __restrict__ x, T* __restrict__ y, long long begin, long long end,
+    int t, int P, int act, int act_norm, float count, float eps,
+    const Sums& sums, bool cluster) {
+  constexpr int kLoads = E / V;
+  Held<kPacked, T, V, kLoads> held;
+  const int n = load_held(held, x, begin, end, t, P, act, act_norm);
+  float2 acc = held_sums<!Var::kCentered>(held, n, act, act_norm);
   float2 st;
   if constexpr (Var::kCentered) {
     const float mean = sums(acc, 0).x / count;
@@ -371,18 +420,7 @@ __device__ __forceinline__ void resident_plane(
     st = stats_of<Var>(acc.x / count, acc.y, count, eps);
   }
   if (cluster) cluster_arrive();  // done reading the peers' shared memory
-#pragma unroll
-  for (int k = 0; k < kLoads; ++k) {
-    if (k < n) {
-      float v[V];
-      held.get(k, v, act, act_norm);
-#pragma unroll
-      for (int j = 0; j < V; ++j) v[j] = (v[j] - st.x) * st.y;
-      if (!act_norm) activate_all<V>(v, act);
-      const long long i = begin + ((long long)t + (long long)P * k) * V;
-      store_vec<V>(y + i, v);
-    }
-  }
+  store_held(held, n, y, begin, t, P, st, act, act_norm);
   if (cluster) cluster_wait();  // the peers are done reading ours
 }
 
@@ -428,6 +466,70 @@ __device__ __forceinline__ void load_h(const T* __restrict__ p, float* v,
   unpack_h<V, T>(load_raw<V>(p), v, act, act_norm);
 }
 
+// (d)'s loop over a CTA's share [begin, end) of a plane in device memory:
+// thread t takes the vectors begin + (t + kPlaneThreads * i) * V, kStreamLoads
+// of them loaded per trip before any is used. The elements are visited in the
+// same order as with one load a trip, so the sums do not depend on it.
+constexpr int kStreamLoads = 4;
+
+// The sums (s, ss) of h over the share; ss only with kSquares.
+template <bool kSquares, int V, typename T>
+__device__ __forceinline__ float2 stream_sums(const T* __restrict__ p,
+                                              long long begin, long long end,
+                                              int act, int act_norm) {
+  const long long step = (long long)kPlaneThreads * V;
+  float2 acc = make_float2(0.f, 0.f);
+  for (long long i = begin + (long long)threadIdx.x * V; i < end;
+       i += kStreamLoads * step) {
+    Raw<T, V> r[kStreamLoads];
+#pragma unroll
+    for (int u = 0; u < kStreamLoads; ++u)
+      if (i + u * step < end) r[u] = load_raw<V>(p + i + u * step);
+#pragma unroll
+    for (int u = 0; u < kStreamLoads; ++u) {
+      if (i + u * step < end) {
+        float v[V];
+        unpack_h<V, T>(r[u], v, act, act_norm);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          acc.x += v[j];
+          if (kSquares) acc.y += v[j] * v[j];
+        }
+      }
+    }
+  }
+  return acc;
+}
+
+// o = (h - st.x) * st.y over the share, the activation after it for
+// norm_act.
+template <int V, typename T>
+__device__ __forceinline__ void stream_store(const T* __restrict__ p,
+                                             T* __restrict__ o,
+                                             long long begin, long long end,
+                                             float2 st, int act,
+                                             int act_norm) {
+  const long long step = (long long)kPlaneThreads * V;
+  for (long long i = begin + (long long)threadIdx.x * V; i < end;
+       i += kStreamLoads * step) {
+    Raw<T, V> r[kStreamLoads];
+#pragma unroll
+    for (int u = 0; u < kStreamLoads; ++u)
+      if (i + u * step < end) r[u] = load_raw<V>(p + i + u * step);
+#pragma unroll
+    for (int u = 0; u < kStreamLoads; ++u) {
+      if (i + u * step < end) {
+        float v[V];
+        unpack_h<V, T>(r[u], v, act, act_norm);
+#pragma unroll
+        for (int j = 0; j < V; ++j) v[j] = (v[j] - st.x) * st.y;
+        if (!act_norm) activate_all<V>(v, act);
+        store_vec<V>(o + i + u * step, v);
+      }
+    }
+  }
+}
+
 // (d): a cluster of kMaxCluster CTAs per plane, each looping over its share
 // [r * share, (r + 1) * share) in device memory.
 template <class Var, typename T, int V>
@@ -443,21 +545,13 @@ __global__ void __launch_bounds__(kPlaneThreads)
   const long long end = begin + share < hw ? begin + share : hw;
   const T* p = x + plane * hw;
   T* o = y + plane * hw;
-  const long long step = (long long)kPlaneThreads * V;
   const float count = (float)hw;
-  float2 acc = make_float2(0.f, 0.f);
-  for (long long i = begin + (long long)threadIdx.x * V; i < end; i += step) {
-    float v[V];
-    load_h<V>(p + i, v, act, act_norm);
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      acc.x += v[j];
-      if (!Var::kCentered) acc.y += v[j] * v[j];
-    }
-  }
+  float2 acc =
+      stream_sums<!Var::kCentered, V>(p, begin, end, act, act_norm);
   float2 st;
   if constexpr (Var::kCentered) {
     const float mean = sums(acc, 0).x / count;
+    const long long step = (long long)kPlaneThreads * V;
     float ss = 0.f;
     for (long long i = begin + (long long)threadIdx.x * V; i < end; i += step) {
       float v[V];
@@ -474,25 +568,19 @@ __global__ void __launch_bounds__(kPlaneThreads)
     st = stats_of<Var>(acc.x / count, acc.y, count, eps);
   }
   cluster_arrive();
-  for (long long i = begin + (long long)threadIdx.x * V; i < end; i += step) {
-    float v[V];
-    load_h<V>(p + i, v, act, act_norm);
-#pragma unroll
-    for (int j = 0; j < V; ++j) v[j] = (v[j] - st.x) * st.y;
-    if (!act_norm) activate_all<V>(v, act);
-    store_vec<V>(o + i, v);
-  }
+  stream_store<V>(p, o, begin, end, st, act, act_norm);
   cluster_wait();
 }
 
-// A cluster launch of `blocks` CTAs of kPlaneThreads, `cluster` CTAs each.
+// A launch of `blocks` CTAs of `threads`, as clusters of `cluster` CTAs when
+// cluster > 1. Returns the launch's error.
 template <typename... Params, typename... Args>
-cudaError_t launch_clustered(void (*kernel)(Params...), long long blocks,
-                             int cluster, cudaStream_t stream,
-                             Args&&... args) {
+cudaError_t launch_grid(void (*kernel)(Params...), long long blocks,
+                        int threads, int cluster, cudaStream_t stream,
+                        Args&&... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks);
-  cfg.blockDim = dim3(kPlaneThreads);
+  cfg.blockDim = dim3((unsigned)threads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -501,77 +589,57 @@ cudaError_t launch_clustered(void (*kernel)(Params...), long long blocks,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
-}
-
-template <class Var, typename T, int V, int E>
-cudaError_t launch_warps(const T* x, T* y, long long planes, long long hw,
-                         int act, int act_norm, float eps,
-                         cudaStream_t stream) {
-  constexpr long long kPer = kWarpPlaneThreads / 32;
-  warp_plane_kernel<Var, T, V, E>
-      <<<(unsigned)ceil_div(planes, kPer), kWarpPlaneThreads, 0, stream>>>(
-          x, y, planes, hw, act, act_norm, eps);
-  return cudaGetLastError();
-}
-
-template <class Var, typename T, int V, int E>
-cudaError_t launch_ctas(const PlanePlan& p, const T* x, T* y,
-                        long long planes, long long hw, int act, int act_norm,
-                        float eps, cudaStream_t stream) {
-  if (p.cluster == 1) {
-    cta_plane_kernel<Var, T, V, E><<<(unsigned)planes, kPlaneThreads, 0,
-                                     stream>>>(x, y, hw, p.share, 1, act,
-                                               act_norm, eps);
-    return cudaGetLastError();
-  }
-  const cudaError_t err = launch_clustered(
-      cta_plane_kernel<Var, T, V, E>, planes * p.cluster, p.cluster, stream,
-      x, y, hw, p.share, p.cluster, act, act_norm, eps);
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// The plan's kernel: E = p.elems, a power-of-two multiple of one vector's
-// elements (kLo), at most 4 kLo a lane for (a) and 8 kLo a thread for (b),
-// (c).
+// launch(std::integral_constant<int, E>()) for E = elems, the elements a
+// thread holds in the plan: kLo (one 16-byte vector's elements) times 1, 2,
+// 4 or, for (b) and (c), 8.
+template <int kLo, class Launch>
+cudaError_t with_elems(const PlanePlan& p, Launch&& launch) {
+  const int e = p.elems / kLo;
+  if (p.elems % kLo == 0) {
+    if (e == 1) return launch(std::integral_constant<int, kLo>());
+    if (e == 2) return launch(std::integral_constant<int, 2 * kLo>());
+    if (e == 4) return launch(std::integral_constant<int, 4 * kLo>());
+    if (e == 8 && p.regime != kRegimeWarp)
+      return launch(std::integral_constant<int, 8 * kLo>());
+  }
+  return cudaErrorInvalidValue;
+}
+
+// CTAs of a launch of the plan over `planes` planes: eight planes a block in
+// (a), `cluster` CTAs a plane beyond.
+inline long long plan_blocks(const PlanePlan& p, long long planes) {
+  return p.regime == kRegimeWarp ? ceil_div(planes, kWarpPlaneThreads / 32)
+                                 : planes * p.cluster;
+}
+
+// The plan's kernel (E = p.elems).
 template <class Var, typename T, int V>
 cudaError_t launch_vec(const PlanePlan& p, const T* x, T* y, long long planes,
                        long long hw, int act, int act_norm, float eps,
                        cudaStream_t stream) {
-  constexpr int kLo = 16 / (int)sizeof(T);
-  if (p.regime == kRegimeStream) {
-    const cudaError_t err = launch_clustered(
-        stream_plane_kernel<Var, T, V>, planes * kMaxCluster, kMaxCluster,
-        stream, x, y, hw, p.share, act, act_norm, eps);
-    return err != cudaSuccess ? err : cudaGetLastError();
-  }
-  const int e = p.elems / kLo;
-  if (p.regime == kRegimeWarp) {
-    if (e == 1)
-      return launch_warps<Var, T, V, kLo>(x, y, planes, hw, act, act_norm,
-                                          eps, stream);
-    if (e == 2)
-      return launch_warps<Var, T, V, 2 * kLo>(x, y, planes, hw, act,
-                                              act_norm, eps, stream);
-    if (e == 4)
-      return launch_warps<Var, T, V, 4 * kLo>(x, y, planes, hw, act,
-                                              act_norm, eps, stream);
-    return cudaErrorInvalidValue;
-  }
-  if (e == 1)
-    return launch_ctas<Var, T, V, kLo>(p, x, y, planes, hw, act, act_norm,
-                                       eps, stream);
-  if (e == 2)
-    return launch_ctas<Var, T, V, 2 * kLo>(p, x, y, planes, hw, act,
-                                           act_norm, eps, stream);
-  if (e == 4)
-    return launch_ctas<Var, T, V, 4 * kLo>(p, x, y, planes, hw, act,
-                                           act_norm, eps, stream);
-  if (e == 8)
-    return launch_ctas<Var, T, V, 8 * kLo>(p, x, y, planes, hw, act,
-                                           act_norm, eps, stream);
-  return cudaErrorInvalidValue;
+  const long long blocks = plan_blocks(p, planes);
+  if (p.regime == kRegimeStream)
+    return launch_grid(stream_plane_kernel<Var, T, V>, blocks, kPlaneThreads,
+                       kMaxCluster, stream, x, y, hw, p.share, act, act_norm,
+                       eps);
+  return with_elems<16 / (int)sizeof(T)>(p, [&](auto e) {
+    constexpr int E = decltype(e)::value;
+    if (p.regime == kRegimeWarp) {
+      if constexpr (E <= 4 * 16 / (int)sizeof(T))
+        return launch_grid(warp_plane_kernel<Var, T, V, E>, blocks,
+                           kWarpPlaneThreads, 1, stream, x, y, planes, hw, act,
+                           act_norm, eps);
+    }
+    return launch_grid(cta_plane_kernel<Var, T, V, E>, blocks, kPlaneThreads,
+                       p.cluster, stream, x, y, hw, p.share, p.cluster, act,
+                       act_norm, eps);
+  });
 }
 
 inline bool vector_ok(const void* x, const void* y, long long hw,
@@ -587,10 +655,7 @@ cudaError_t launch_typed(const void* x, void* y, long long planes,
                          cudaStream_t stream) {
   const bool vec = vector_ok(x, y, hw, (int)sizeof(T));
   const PlanePlan p = plan_plane(hw, (int)sizeof(T), vec);
-  const long long blocks = p.regime == kRegimeWarp
-                               ? ceil_div(planes, kWarpPlaneThreads / 32)
-                               : planes * p.cluster;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  if (plan_blocks(p, planes) > INT_MAX) return cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
   if (vec)

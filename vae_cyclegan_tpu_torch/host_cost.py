@@ -8,21 +8,25 @@ which the serving path (batch 1, no autograd) and the training step
 calls that reach K3's zero_same mode and K4, at the full-width bf16 shapes
 (the identity IN site (n, 1024, 16, 16), U4's conv (n, 32, 256, 256) with a
 (64, 32, 3, 3) weight, and its dx and dw), plus one whole ``generate`` at
-batch 1. Each timing covers `iters` calls after a synchronize, few enough
-that the launch queue does not fill, so it reads the host's own cost of a
-call while the card runs behind it. Prints the card's name and power limit
-and one JSON line of microseconds per call.
+batch 1; and the same IN site under a spatial scope of 1, where
+``instance_norm_act`` takes K2's split pair (``in_stats``, the sums'
+reduction, ``in_apply``). Each timing covers `iters` calls after a
+synchronize, few enough that the launch queue does not fill, so it reads the
+host's own cost of a call while the card runs behind it. Prints the card's
+name and power limit and one JSON line of microseconds per call.
 
-It uses only entry points that the port has had since its training step
-was ported (``ops.instance_norm.instance_norm_act``, ``ops.starved_conv``'s
-``starved_reflect_conv``, ``_zero_same``, ``_dw`` and ``rotate``, the
-tasks), so a copy of it runs against an earlier tree of the port as well:
-that is how two versions of the path are compared in one call.
+Apart from the split sites it uses only entry points that the port has had
+since its training step was ported (``ops.instance_norm.instance_norm_act``,
+``ops.starved_conv``'s ``starved_reflect_conv``, ``_zero_same``, ``_dw``
+and ``rotate``, the tasks), so a copy of it runs against an earlier tree of
+the port as well (the split sites need ``parallel.spatial``): that is how
+two versions of the path are compared in one call.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import time
@@ -51,6 +55,7 @@ def measure(iters: int = 100, device="cuda") -> dict:
     from vae_cyclegan_tpu_torch.models.tasks import create_task
     from vae_cyclegan_tpu_torch.ops import starved_conv as sc
     from vae_cyclegan_tpu_torch.ops.instance_norm import instance_norm_act
+    from vae_cyclegan_tpu_torch.parallel import spatial
 
     dev = torch.device(device)
     b16 = torch.bfloat16
@@ -60,32 +65,40 @@ def measure(iters: int = 100, device="cuda") -> dict:
         t = torch.randn(shape, generator=gen, device=dev).to(b16)
         return t.requires_grad_(grad)
 
-    calls = {}  # name -> (call, whether autograd records)
+    # name -> (call, whether autograd records, the spatial layout it runs
+    # under or None)
+    calls = {}
     for n, grad in ((1, False), (4, True)):
         path = "step_b4" if grad else "serving_b1"
         x_in = rand(n, 1024, 16, 16, grad=grad)
         x_conv = rand(n, 32, 256, 256, grad=grad)
         w = rand(64, 32, 3, 3, grad=grad)
         calls[f"in_act_{path}"] = (lambda x=x_in: instance_norm_act(
-            x, act="relu", order="act_norm"), grad)
+            x, act="relu", order="act_norm"), grad, None)
         calls[f"starved_conv_{path}"] = (
-            lambda x=x_conv, w=w: sc.starved_reflect_conv(x, w), grad)
+            lambda x=x_conv, w=w: sc.starved_reflect_conv(x, w), grad, None)
     g = rand(4, 64, 256, 256)
     x = rand(4, 32, 256, 256)
     wrot = sc.rotate(rand(64, 32, 3, 3)).contiguous()
-    calls["starved_conv_dx_step_b4"] = (lambda: sc._zero_same(g, wrot), False)
-    calls["starved_dw_step_b4"] = (lambda: sc._dw(x, g, 3), False)
+    calls["starved_conv_dx_step_b4"] = (lambda: sc._zero_same(g, wrot), False,
+                                        None)
+    calls["starved_dw_step_b4"] = (lambda: sc._dw(x, g, 3), False, None)
     task = create_task("cyclevaegan", model=ModelConfig(256, 64, 64, b16),
                        device=dev)
     task.init(0)
     image = torch.rand(1, 256, 256, 3, generator=gen, device=dev)
     eps = torch.randn(1, 16, 16, 64, generator=gen, device=dev)
     calls["generate_b1"] = (lambda: task.generate({"x": image}, eps=eps),
-                            False)
+                            False, None)
+    for name in ("in_act_serving_b1", "in_act_step_b4"):
+        calls[name.replace("in_act", "in_split")] = (*calls[name][:2],
+                                                     spatial.single())
 
     out = {}
-    for name, (fn, grad) in calls.items():
-        with torch.set_grad_enabled(grad):
+    for name, (fn, grad, lay) in calls.items():
+        scope = (contextlib.nullcontext() if lay is None
+                 else spatial.spatial_scope(lay))
+        with torch.set_grad_enabled(grad), scope:
             for _ in range(3):
                 fn()
             runs = sorted(host_us(fn, iters) for _ in range(5))

@@ -61,10 +61,11 @@ _SIGNATURES = {
     # (x, stats, planes, hw, dtype, act, act_norm, stream), K2's stats pass
     "vct_in_stats": (_I, [_P, _P, ctypes.c_longlong, ctypes.c_longlong, _I,
                           _I, _I, _P]),
-    # (x, stats, y, planes, hw, count, dtype, act, act_norm, eps, stream),
-    # K2's apply pass
-    "vct_in_apply": (_I, [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
-                          ctypes.c_float, _I, _I, _I, ctypes.c_float, _P]),
+    # (x, stats, y, moments, planes, hw, 1 / count, dtype, act, act_norm,
+    # eps, stream), K2's apply pass
+    "vct_in_apply": (_I, [_P, _P, _P, _P, ctypes.c_longlong,
+                          ctypes.c_longlong, ctypes.c_float, _I, _I, _I,
+                          ctypes.c_float, _P]),
     # (hw, dtype, vector_ok, int[4] out) -> 0: the IN kernels' plane plan
     "vct_in_plane_plan": (_I, [ctypes.c_longlong, _I, _I, _P]),
     # (x, w, y, n, cin, cout, h, w, k, mode, dtype, stream)
@@ -161,6 +162,8 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
 def load(build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
     """The kernels' shared library, built at first use."""
     global _lib
+    if _lib is not None:  # bound once; the lock guards the first build
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build(build_dir)))

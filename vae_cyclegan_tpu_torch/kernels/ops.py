@@ -8,8 +8,10 @@ program that runs on the card launches the hand kernel:
   ``vct::in_act(x, act, order, eps)``        K1, ``csrc/in_act.cu``
   ``vct::in_act_tiled(x, act, order, eps)``  K2, ``csrc/in_act_tiled.cu``
   ``vct::in_stats(x, act, order)``           K2's statistics pass and
-  ``vct::in_apply(x, stats, count, act,``    its apply pass, for planes split
-  ``order, eps)``                            over ranks, ``csrc/in_split.cu``
+  ``vct::in_apply(x, stats, count, act,``    its apply pass (y and each
+  ``order, eps)``                            plane's mean and rsqrt), for
+                                             planes split over ranks,
+                                             ``csrc/in_split.cu``
   ``vct::starved_conv(x, w, mode)``          K3, ``csrc/starved_conv.cu``,
                                              mode "reflect", "zero_same" or
                                              "zero"
@@ -36,6 +38,8 @@ modules import it); load an exported program only after that.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 from torch import Tensor
@@ -115,14 +119,14 @@ def _in_stats_fake(x: Tensor, act: str, order: str) -> Tensor:
 @torch.library.custom_op(f"{_LIB}::in_apply", mutates_args=(),
                          device_types="cpu")
 def in_apply(x: Tensor, stats: Tensor, count: float, act: str, order: str,
-             eps: float) -> Tensor:
+             eps: float) -> Tuple[Tensor, Tensor]:
     from vae_cyclegan_tpu_torch.ops.instance_norm import in_apply_reference
     return in_apply_reference(x, stats, count, act, order, eps)
 
 
 @in_apply.register_kernel("cuda")
 def _in_apply_cuda(x: Tensor, stats: Tensor, count: float, act: str,
-                   order: str, eps: float) -> Tensor:
+                   order: str, eps: float) -> Tuple[Tensor, Tensor]:
     from vae_cyclegan_tpu_torch.ops.instance_norm import in_apply_cuda
     return in_apply_cuda(x.contiguous(), stats.contiguous(), count, act,
                          order, eps)
@@ -130,8 +134,8 @@ def _in_apply_cuda(x: Tensor, stats: Tensor, count: float, act: str,
 
 @in_apply.register_fake
 def _in_apply_fake(x: Tensor, stats: Tensor, count: float, act: str,
-                   order: str, eps: float) -> Tensor:
-    return _empty_like(x)
+                   order: str, eps: float) -> Tuple[Tensor, Tensor]:
+    return _empty_like(x), stats.new_empty((2, x.shape[0], x.shape[1], 1, 1))
 
 
 # K3 -----------------------------------------------------------------------

@@ -57,9 +57,10 @@ with the plane's global element count, which is K2's pair of passes
 The sites that take K1 or K2 in one process (the rule read on the GLOBAL
 shape) run the split kernels (``csrc/in_split.cu``, ``vct::in_stats`` and
 ``vct::in_apply``), the others their plain versions; both single-pass, as
-JAX's spatial path (``_fused_xla``, its ``_stats``). The backward is
-``_fused_xla_bwd`` in f32 with its two per-plane means packed into one
-all-reduce.
+JAX's spatial path (``_fused_xla``, its ``_stats``). The apply also returns
+each plane's (mean, rsqrt(var + eps)), which the backward keeps. The
+backward is ``_fused_xla_bwd`` in f32 with its two per-plane means packed
+into one all-reduce.
 """
 
 from __future__ import annotations
@@ -254,23 +255,33 @@ def _check_kernel_input(name: str, x: torch.Tensor, act: str,
                            "instance_norm_act for the op with its gradient")
 
 
+def _launch(entry: str, x: torch.Tensor, *args) -> None:
+    """One launch of the C entry point `entry` with `args` on x's device and
+    that device's current stream; raises on a failed launch. Enters the
+    device's context only when x is not on the current device. Reads the
+    device and the stream through ``torch._C``'s raw getters, which
+    ``torch.cuda.current_device`` and ``current_stream`` wrap:
+    ``current_stream`` builds a Python stream object on every call, a large
+    part of the host time of a small site's call."""
+    fn = getattr(kernels.load(), entry)
+    dev = x.get_device()
+    if dev == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    kernels.check(rc, entry[4:])
+
+
 def _launch_in_act(entry: str, x: torch.Tensor, act: str, order: str,
                    eps: float) -> torch.Tensor:
-    """One launch of an IN+act kernel (C entry point `entry`) on x's device
-    and that device's current stream; returns y. Enters the device's
-    context only when x is not on the current device."""
+    """One launch of an IN+act kernel (C entry point `entry`); returns y."""
     _check_kernel_input(entry[4:], x, act, order)
     n, c, h, w = x.shape
-    fn = getattr(kernels.load(), entry)
     y = torch.empty_like(x)
-    args = (x.data_ptr(), y.data_ptr(), n * c, h * w, DTYPE_CODES[x.dtype],
-            _ACT_CODES[act], int(order == "act_norm"), float(eps))
-    if x.device.index == torch.cuda.current_device():
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(x.device):
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    kernels.check(rc, entry[4:])
+    _launch(entry, x, x.data_ptr(), y.data_ptr(), n * c, h * w,
+            DTYPE_CODES[x.dtype], _ACT_CODES[act], int(order == "act_norm"),
+            float(eps))
     return y
 
 
@@ -299,6 +310,7 @@ def in_act_tiled_cuda(x: torch.Tensor, act: str, order: str,
 
 in_act_tiled_cuda.launches = 0
 
+
 def in_stats_reference(x: torch.Tensor, act: str, order: str) -> torch.Tensor:
     """Plain version of the statistics pass (``_stats_kernel``): per (n, c)
     plane of an NCHW tensor, in f32, (s, ss) = the sums of h and h^2, h =
@@ -312,20 +324,27 @@ def in_stats_reference(x: torch.Tensor, act: str, order: str) -> torch.Tensor:
 
 def plane_moments(stats: torch.Tensor, count: float, eps: float):
     """(mean, rsqrt(var + eps)) as (N, C, 1, 1) f32 from the sums (s, ss)
-    of planes of `count` elements: var = max(ss / count - mean^2, 0)."""
-    mu = stats[..., 0] / count
-    var = torch.clamp_min(stats[..., 1] / count - mu.square(), 0.0)
+    of planes of `count` elements: mean = s / count, var = max(ss / count -
+    mean^2, 0), each quotient a product with 1 / count rounded to f32 once
+    (how torch divides a CUDA tensor by a scalar, and how the apply kernel
+    takes it: its moments equal these on the card)."""
+    inv = 1.0 / count
+    mu = stats[..., 0] * inv
+    var = torch.clamp_min(stats[..., 1] * inv - mu.square(), 0.0)
     return mu[..., None, None], torch.rsqrt(var + eps)[..., None, None]
 
 
 def in_apply_reference(x: torch.Tensor, stats: torch.Tensor, count: float,
-                       act: str, order: str, eps: float = EPS) -> torch.Tensor:
+                       act: str, order: str, eps: float = EPS):
     """Plain version of the apply pass (``_apply_kernel``): from x, the
     planes' sums (s, ss) (``in_stats_reference``, all-reduced) and the
     whole plane's element count, y = (h - mean) * rsqrt(var + eps), the
     activation after the norm for norm_act, one rounding to x's dtype.
-    ``in_apply_reference(x, in_stats_reference(x), H*W)`` is
-    ``tiled_reference(x)``."""
+    Returns (y, moments): moments is (2, N, C, 1, 1), ``plane_moments``'
+    mean and rsqrt(var + eps) stacked (the pair ``_InActSpatial`` keeps).
+    ``in_apply_reference(x, in_stats_reference(x), H*W)[0]`` is
+    ``tiled_reference(x)`` where H*W is a power of two (else within a
+    rounding of the mean)."""
     f = ACTS[act]
     h = x.float()
     if order == "act_norm":
@@ -334,7 +353,7 @@ def in_apply_reference(x: torch.Tensor, stats: torch.Tensor, count: float,
     y = (h - mu) * r
     if order == "norm_act":
         y = f(y)
-    return y.to(x.dtype)
+    return y.to(x.dtype), torch.stack((mu, r))
 
 
 def in_stats_cuda(x: torch.Tensor, act: str, order: str) -> torch.Tensor:
@@ -343,14 +362,9 @@ def in_stats_cuda(x: torch.Tensor, act: str, order: str) -> torch.Tensor:
     differentiable itself: raises under autograd."""
     _check_kernel_input("in_stats", x, act, order)
     n, c, h, w = x.shape
-    out = torch.empty((n, c, 2), dtype=torch.float32, device=x.device)
-    lib = kernels.load()
-    with torch.cuda.device(x.device):
-        rc = lib.vct_in_stats(x.data_ptr(), out.data_ptr(), n * c, h * w,
-                              DTYPE_CODES[x.dtype], _ACT_CODES[act],
-                              int(order == "act_norm"),
-                              torch.cuda.current_stream().cuda_stream)
-    kernels.check(rc, "in_stats")
+    out = x.new_empty((n, c, 2), dtype=torch.float32)
+    _launch("vct_in_stats", x, x.data_ptr(), out.data_ptr(), n * c, h * w,
+            DTYPE_CODES[x.dtype], _ACT_CODES[act], int(order == "act_norm"))
     in_stats_cuda.launches += 1
     return out
 
@@ -359,30 +373,28 @@ in_stats_cuda.launches = 0
 
 
 def in_apply_cuda(x: torch.Tensor, stats: torch.Tensor, count: float,
-                  act: str, order: str, eps: float = EPS) -> torch.Tensor:
-    """Launch K2's apply pass (``csrc/in_split.cu``): y from a contiguous
+                  act: str, order: str, eps: float = EPS):
+    """Launch K2's apply pass (``csrc/in_split.cu``): from a contiguous
     NCHW CUDA tensor x (float32 or bfloat16), its planes' (N, C, 2) f32
-    sums over the whole plane and the whole plane's element count. Not
-    differentiable itself: raises under autograd."""
+    sums over the whole plane and the whole plane's element count, (y,
+    moments) as ``in_apply_reference`` returns them. Not differentiable
+    itself: raises under autograd."""
     _check_kernel_input("in_apply", x, act, order)
     n, c, h, w = x.shape
-    if (stats.dtype != torch.float32 or stats.device != x.device
-            or tuple(stats.shape) != (n, c, 2) or not stats.is_contiguous()):
+    if (stats.dtype != torch.float32 or stats.get_device() != x.get_device()
+            or stats.shape != (n, c, 2) or not stats.is_contiguous()):
         raise ValueError(f"in_apply kernel: stats must be contiguous "
                          f"float32 ({n}, {c}, 2) on {x.device}, got "
                          f"{stats.dtype} {tuple(stats.shape)} on "
                          f"{stats.device}")
     y = torch.empty_like(x)
-    lib = kernels.load()
-    with torch.cuda.device(x.device):
-        rc = lib.vct_in_apply(x.data_ptr(), stats.data_ptr(), y.data_ptr(),
-                              n * c, h * w, float(count),
-                              DTYPE_CODES[x.dtype], _ACT_CODES[act],
-                              int(order == "act_norm"), float(eps),
-                              torch.cuda.current_stream().cuda_stream)
-    kernels.check(rc, "in_apply")
+    moments = stats.new_empty((2, n, c, 1, 1))
+    _launch("vct_in_apply", x, x.data_ptr(), stats.data_ptr(), y.data_ptr(),
+            moments.data_ptr(), n * c, h * w, 1.0 / count,
+            DTYPE_CODES[x.dtype], _ACT_CODES[act], int(order == "act_norm"),
+            float(eps))
     in_apply_cuda.launches += 1
-    return y
+    return y, moments
 
 
 in_apply_cuda.launches = 0
@@ -465,20 +477,15 @@ class _InActPlain(torch.autograd.Function):
 def _spatial_forward(x: torch.Tensor, act: str, order: str, eps: float,
                      kernel: bool, lay: spatial.Layout):
     """(y, mean, rsqrt) of a row-sharded site: this rank's sums, their
-    all-reduce over the spatial group, the apply with the global count;
-    the split kernels where `kernel`, else their plain versions."""
+    all-reduce over the spatial group, the apply with the global count,
+    which also gives the moments; the split kernels where `kernel`, else
+    their plain versions."""
     count = float(x.shape[2] * x.shape[3] * lay.size)
-    if kernel:
-        st = kernel_ops.in_stats(x, act, order)
-    else:
-        st = in_stats_reference(x, act, order)
-    st = spatial.reduce_sum(st, lay)
-    if kernel:
-        y = kernel_ops.in_apply(x, st, count, act, order, eps)
-    else:
-        y = in_apply_reference(x, st, count, act, order, eps)
-    mu, r = plane_moments(st, count, eps)
-    return y, mu, r
+    stats, apply = ((kernel_ops.in_stats, kernel_ops.in_apply) if kernel
+                    else (in_stats_reference, in_apply_reference))
+    st = spatial.reduce_sum(stats(x, act, order), lay)
+    y, moments = apply(x, st, count, act, order, eps)
+    return y, moments[0], moments[1]
 
 
 class _InActSpatial(torch.autograd.Function):
