@@ -131,9 +131,7 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               runs again with every discriminator score x1.25 seeded, which
               the D_loss check must catch (``chip_smoke.py
               --trajectory-fault d_score=1.1 lambda_gan=1.1 ...`` runs this
-              phase alone with the faults given); the host microseconds
-              per call of the K1 / K3 / K4 sites through the custom
-              operators (``host_cost``)
+              phase alone with the faults given)
  13. data parallelism: a world-1 NCCL group (``parallel.mesh``); the
               full-width bf16 paired cyclevaegan at batch 24 through
               ``Engine(task, seed, group)``: its first step's synced
@@ -199,7 +197,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vae_cyclegan_tpu_torch import bench, host_cost, kernels, parity_curves
+from vae_cyclegan_tpu_torch import bench, kernels, parity_curves
 from vae_cyclegan_tpu_torch import test as test_driver
 from vae_cyclegan_tpu_torch import train as train_driver
 from vae_cyclegan_tpu_torch.config import ModelConfig, OptimConfig
@@ -224,7 +222,6 @@ from vae_cyclegan_tpu_torch.experiments.common import (
     conv_operands,
     reflect_conv_reference,
 )
-from vae_cyclegan_tpu_torch.host_cost import host_us
 from vae_cyclegan_tpu_torch.inference import run_inference
 from vae_cyclegan_tpu_torch.models.tasks import ARCHITECTURES, create_task
 from vae_cyclegan_tpu_torch.ops.instance_norm import (
@@ -611,6 +608,20 @@ def kernel_device_ms(fn, iters: int, keys):
 
 def ms_text(ms, digits: int = 4) -> str:
     return "not measured" if ms is None else f"{ms:.{digits}f}"
+
+
+def host_us(fn, iters: int) -> float:
+    """Host microseconds per call over `iters` calls, after a synchronize,
+    without one inside: the call's own cost while the card runs behind it
+    (where the card is the slower side, the launch queue fills and this
+    reads the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def time_calls(fns: dict, iters: int) -> dict:
@@ -2796,16 +2807,12 @@ def _trajectory_checks(recs: dict, bands: list, fault) -> list:
 
 
 def phase_export_remat_trajectory(card: str) -> None:
-    """Phase 12: (a) export, (b) remat, (c) trajectories, then the host
-    cost per call of the custom-op path."""
+    """Phase 12: (a) export, (b) remat, (c) trajectories."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         _phase_export(card, Path(tmp))
     _phase_remat(card)
     _phase_trajectory(card, (TRAJ_FAULT,))
-    us = host_cost.measure()
-    say("host us per call through the vct ops: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in us.items()) + f" [{card}]")
     say(f"phase 12 (export, remat, trajectories): "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
 
@@ -3501,8 +3508,7 @@ def _bench_spatial(card: str) -> None:
     one card): its ``spatial`` key and its launches per step (K2's split in
     K1's place)."""
     env = {**os.environ, "BENCH_SPATIAL": "1", "BENCH_E2E": "0",
-           "BENCH_LOADER_ONLY": "0", "BENCH_TRACE": "0",
-           "BENCH_STEPS": str(BENCH_CHILD_STEPS)}
+           "BENCH_LOADER_ONLY": "0", "BENCH_STEPS": str(BENCH_CHILD_STEPS)}
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "vae_cyclegan_tpu_torch.bench"],

@@ -170,7 +170,7 @@ def test_bench_takes_bench_remat():
     """BENCH_REMAT=1 runs the bench's step with remat (the line says so);
     the other unported switches stay refused (test_torch_bench.py)."""
     env = {**TINY, "BENCH_ARCH": "vae", "BENCH_REMAT": "1",
-           "BENCH_E2E": "0", "BENCH_LOADER_ONLY": "0", "BENCH_TRACE": "0"}
+           "BENCH_E2E": "0", "BENCH_LOADER_ONLY": "0"}
     rc, lines, err = run_bench(env)
     assert rc == 0, err
     (line,) = lines

@@ -14,7 +14,7 @@ Environment, as ``bench.py`` reads it: BENCH_ARCH (cyclevaegan),
 BENCH_BATCH (24), BENCH_STEPS (10), BENCH_PRECISION (bf16 | float32),
 BENCH_IMAGE_SIZE (256), BENCH_PHASE (all | e2e | loader), BENCH_E2E_MODE
 (host | device), BENCH_E2E_STEPS (12), BENCH_LOADER_STEPS (24),
-BENCH_LOADER_WORKERS (1,4), BENCH_TRACE, BENCH_E2E and BENCH_LOADER_ONLY
+BENCH_LOADER_WORKERS (1,4), BENCH_E2E and BENCH_LOADER_ONLY
 (1; 0 skips that part), BENCH_REMAT (1 rematerializes the generator
 passes, ``ModelConfig.remat``), BENCH_UNIFIED (1, the default, as in
 ``bench.py``: the step runs through a world-1 process group, NCCL on the
@@ -32,9 +32,7 @@ so the line prices what ``--spatial`` costs before any halo; the line's
 port needs a plain-only mode): if it is set, the bench fails.
 
 Phases: the step (3 warm-up steps, then the median of 3 windows of
-BENCH_STEPS steps, each window closed by reading G_loss; per-step times
-from CUDA events around each step; the kernels' summed device time per step
-from ``torch.profiler``); e2e (epochs of ``Engine.train_epoch``: decoded-
+BENCH_STEPS steps, each window closed by reading G_loss); e2e (epochs of ``Engine.train_epoch``: decoded-
 image cache -> prefetching loader -> ``Engine._put`` -> step, with the
 engine's per-batch phase breakdown) and the loader alone with host-to-
 device bandwidth, each in a fresh child process, on a tree of
@@ -46,7 +44,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -277,7 +274,7 @@ def main() -> None:
         "vs_baseline": round(
             images_per_sec / _reference_images_per_sec(arch), 1),
         # window-amortized mean step time (1000 * batch / median window
-        # rate); the per-step distribution comes from the events below
+        # rate)
         "step_time_ms_window_mean": round(1000.0 * batch / images_per_sec, 2),
         "device": _card(dev),
         "syncs_per_step": syncs,
@@ -286,12 +283,6 @@ def main() -> None:
         "unified": unified,
         "spatial": sp,
     }
-    if os.environ.get("BENCH_TRACE", "1") != "0":
-        try:
-            result.update(_bench_step_distribution(step, steps, dev,
-                                                   result))
-        except Exception as e:  # noqa: BLE001 — the trace is auxiliary
-            result["step_trace_error"] = f"{type(e).__name__}: {e}"
     if os.environ.get("BENCH_E2E", "1") != "0":
         # the e2e configuration, in a fresh process
         try:
@@ -313,72 +304,6 @@ def main() -> None:
             result["loader_only_error"] = f"{type(e).__name__}: {e}"
     mesh.destroy()
     print(json.dumps(result))
-
-
-def _percentile(values, q: float) -> float:
-    ordered = sorted(values)
-    return ordered[min(len(ordered) - 1, int(round(q * (len(ordered) - 1))))]
-
-
-def _bench_step_distribution(step, steps: int, dev: torch.device,
-                             result: dict) -> dict:
-    """Per-step time percentiles over `steps` steps (at least 5): on the
-    card, CUDA events recorded around each step on the compute stream (the
-    step's span on the device, its idle gaps included); on the CPU, the
-    host clock. On the card also the kernels' summed device time per step
-    over two profiled steps, and the share of the window-mean step the
-    device sat idle."""
-    steps = max(int(os.environ.get("BENCH_TRACE_STEPS", steps)), 5)
-    times = []
-    if dev.type == "cuda":
-        pairs = []
-        for _ in range(steps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            step()
-            end.record()
-            pairs.append((start, end))
-        torch.cuda.synchronize(dev)
-        times = [s.elapsed_time(e) for s, e in pairs]
-        source = "cuda events"
-    else:
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            step()
-            times.append(1000 * (time.perf_counter() - t0))
-        source = "host clock (cpu)"
-    out = {"step_time_ms_p50": round(statistics.median(times), 2),
-           "step_time_ms_p95": round(_percentile(times, 0.95), 2),
-           "step_time_samples": len(times), "step_time_source": source}
-    if dev.type == "cuda":
-        busy = _kernel_ms_per_step(step, dev, 2)
-        if busy is None:
-            out["kernel_ms_per_step"] = "not measured"
-        else:
-            out["kernel_ms_per_step"] = round(busy, 2)
-            out["device_idle_share"] = round(
-                1 - busy / result["step_time_ms_window_mean"], 4)
-    return out
-
-
-def _kernel_ms_per_step(step, dev: torch.device, n: int, tries: int = 3):
-    """Summed device time of the kernels of `n` steps under torch.profiler,
-    per step. A session that recorded no device activity (the profiler now
-    and then keeps none) is run again, up to `tries` times; None after."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                step()
-            torch.cuda.synchronize(dev)
-        total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total_us > 0:
-            return total_us / 1000.0 / n
-    return None
 
 
 def _tree_frames(batch: int) -> int:

@@ -27,6 +27,9 @@ and sharded loaders take a rule for a global batch the shards do not divide
     shards, and one that does not is given whole to every rank, with one
     warning (``parallel.mesh.shard_rows``); ``replicated_batches()`` says
     which batches of an epoch those are, for the engine.
+
+While a profiler records, each batch's fetch is a ``vct.load_batch`` range
+on its timeline (``utils.spans``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import Dict, Iterator
 
 import numpy as np
+
+from vae_cyclegan_tpu_torch.utils import spans
 
 # -- process-worker plumbing -------------------------------------------------
 # Each worker process holds the dataset once (sent via initializer) and
@@ -167,7 +172,8 @@ class DataLoader:
         for pos_idx_pairs in batches:
             if stop.is_set():
                 return
-            items = run_batch(pos_idx_pairs)
+            with spans.timeline("vct.load_batch"):
+                items = run_batch(pos_idx_pairs)
             batch = {
                 k: np.stack([it[k] for it in items])
                 for k in items[0]

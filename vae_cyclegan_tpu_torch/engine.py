@@ -61,6 +61,7 @@ import torch.distributed as dist
 from vae_cyclegan_tpu_torch.data.device_aug import augment_batch
 from vae_cyclegan_tpu_torch.models.tasks.base import Task
 from vae_cyclegan_tpu_torch.parallel import dp, mesh, spatial
+from vae_cyclegan_tpu_torch.utils import spans
 
 try:
     from tqdm import tqdm
@@ -139,22 +140,24 @@ class Engine:
         the card: pinned host memory, a non-blocking copy on the engine's
         copy stream, waited for before returning, so the tensors are ready
         for the compute stream."""
-        host = {k: torch.from_numpy(np.ascontiguousarray(v))
-                for k, v in batch.items()}
-        if not self._cuda:
-            return {k: v.to(self.device) for k, v in host.items()}
-        with torch.cuda.stream(self._copy_stream):
-            out = {k: v.pin_memory().to(self.device, non_blocking=True)
-                   for k, v in host.items()}
-        self._copy_stream.synchronize()
-        for t in out.values():  # allocated on the copy stream, used here
-            t.record_stream(self._compute_stream)
-        return out
+        with spans.timeline("vct.h2d_copy"):
+            host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in batch.items()}
+            if not self._cuda:
+                return {k: v.to(self.device) for k, v in host.items()}
+            with torch.cuda.stream(self._copy_stream):
+                out = {k: v.pin_memory().to(self.device, non_blocking=True)
+                       for k, v in host.items()}
+            self._copy_stream.synchronize()
+            for t in out.values():  # allocated on the copy stream, used here
+                t.record_stream(self._compute_stream)
+            return out
 
     def _prep(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """On the device: raw frames augmented, uint8 -> f32 / 255 (the
         task's ``_nchw`` casts without dividing)."""
-        return _normalize_batch(augment_batch(batch, self.out_size))
+        with spans.span("vct.prep"):
+            return _normalize_batch(augment_batch(batch, self.out_size))
 
     # -- steps ----------------------------------------------------------------
 
@@ -206,8 +209,9 @@ class Engine:
                    replicated: bool = False) -> Dict[str, torch.Tensor]:
         """One step on this rank's shard `batch` (`eps`: its noise, this
         rank's rows); `replicated` where the batch is the whole global
-        batch on every rank."""
-        with self._scope(replicated):
+        batch on every rank. While a profiler records, the step is a
+        ``vct.step`` unit (``utils.spans``)."""
+        with spans.unit("vct.step"), self._scope(replicated):
             m, _ = self._task_call(self.task.train_step, batch, eps,
                                    generator=self.generator)
             return self._mean(m)
@@ -258,13 +262,15 @@ class Engine:
         host time went, in ms: per batch blocked on the loader (``host``),
         on the copy (``h2d_wait``) and in the step call (``dispatch``: the
         task reads its loss, so most of the step), the metrics' fetch
-        (``final_sync``) and the whole epoch per batch (``window``).
+        (``final_sync``) and the whole epoch per batch (``window``), from
+        the ``vct.loader_wait`` and ``vct.h2d_wait`` waits (``utils.spans``;
+        while a profiler records, each is also kept with its step: the copy
+        wait before it, the loader wait after it).
         """
         metric_sums: Dict[str, torch.Tensor] = {}
         n_batches = 0
         last_batch = None
         it = tqdm(loader, desc="Training") if progress else loader
-        t0 = time.perf_counter()
         n_images = 0
         # Lagged per-step loss display (reference train.py:107 shows
         # pbar.set_postfix per step): keep recent G_loss tensors with an
@@ -272,32 +278,33 @@ class Engine:
         # has completed (query() never blocks), at most twice a second.
         show_loss = progress and hasattr(it, "set_postfix")
         pending_losses: deque = deque(maxlen=64)
-        next_loss_poll = t0 + 0.5
         # One-batch-ahead device prefetch, dispatch first: step i runs
         # before batch i+1's copy is issued, and the copy runs in a side
         # thread.
         put_pool = ThreadPoolExecutor(1)
-        host = h2d_wait = dispatch = 0.0
+        host = h2d_wait = dispatch = 0
         replicated = _replicated_batches(loader)
         try:
-            _it = iter(it)
-            batch = next(_it, None)
-            host += time.perf_counter() - t0
+            with spans.wait("vct.loader_wait") as first:
+                _it = iter(it)
+                batch = next(_it, None)
+            t0 = first.start_ns * 1e-9
+            next_loss_poll = t0 + 0.5
+            host += first.ns
             put_fut = (put_pool.submit(self._put, batch)
                        if batch is not None else None)
             while batch is not None:
-                ta = time.perf_counter()
-                device_batch = put_fut.result()
-                tb = time.perf_counter()
+                with spans.wait("vct.h2d_wait", "next") as copied:
+                    device_batch = put_fut.result()
                 rep = replicated(n_batches)
                 metrics = self.train_step(
                     device_batch, eps=None if eps is None else eps(n_batches),
                     replicated=rep)
-                tc = time.perf_counter()
-                nxt = next(_it, None)
-                host += time.perf_counter() - tc
-                h2d_wait += tb - ta
-                dispatch += tc - tb
+                with spans.wait("vct.loader_wait", "last") as loaded:
+                    nxt = next(_it, None)
+                host += loaded.ns
+                h2d_wait += copied.ns
+                dispatch += loaded.start_ns - copied.end_ns
                 put_fut = (put_pool.submit(self._put, nxt)
                            if nxt is not None else None)
                 n_batches += 1
@@ -333,9 +340,9 @@ class Engine:
         elapsed = tend - t0
         avg["images_per_sec"] = n_images / elapsed if elapsed > 0 else 0.0
         self.epoch_phases = {
-            "host_ms_per_batch": 1000 * host / n_batches,
-            "h2d_wait_ms_per_batch": 1000 * h2d_wait / n_batches,
-            "dispatch_ms_per_batch": 1000 * dispatch / n_batches,
+            "host_ms_per_batch": 1e-6 * host / n_batches,
+            "h2d_wait_ms_per_batch": 1e-6 * h2d_wait / n_batches,
+            "dispatch_ms_per_batch": 1e-6 * dispatch / n_batches,
             "final_sync_ms": 1000 * (tend - tsync),
             "window_ms_per_batch": 1000 * elapsed / n_batches,
         }

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from vae_cyclegan_tpu_torch.models.tasks.base import Task
+from vae_cyclegan_tpu_torch.utils import spans
 
 
 def normalize_batch_keys(batch: Mapping) -> Mapping:
@@ -28,8 +29,16 @@ def run_inference(task: Task, batch: Mapping, seed: int = 0) -> np.ndarray:
     torch; legacy batches keyed 'A'/'B' are mapped by
     ``normalize_batch_keys``), with reparameterization noise drawn from a
     generator seeded with `seed` on the task's device. Returns the output
-    clipped to [0, 1] as a float32 NHWC numpy array."""
-    x = torch.as_tensor(normalize_batch_keys(batch)["x"]).float()
-    generator = torch.Generator(device=task.device).manual_seed(seed)
-    out = task.generate({"x": x}, generator=generator)
-    return out.float().clamp(0.0, 1.0).cpu().numpy()
+    clipped to [0, 1] as a float32 NHWC numpy array. While a profiler
+    records, the call is a ``vct.request`` unit of the spans
+    ``vct.to_device``, ``vct.generate`` and ``vct.to_host``
+    (``utils.spans``)."""
+    with spans.unit("vct.request"):
+        with spans.span("vct.to_device"):
+            x = torch.as_tensor(normalize_batch_keys(batch)["x"]).float()
+            x = x.to(task.device)
+        generator = torch.Generator(device=task.device).manual_seed(seed)
+        with spans.span("vct.generate"):
+            out = task.generate({"x": x}, generator=generator)
+        with spans.span("vct.to_host"):
+            return out.float().clamp(0.0, 1.0).cpu().numpy()

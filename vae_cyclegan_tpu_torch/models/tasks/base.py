@@ -48,7 +48,7 @@ from vae_cyclegan_tpu_torch.models.networks import (
     VariationalAutoencoderNet,
 )
 from vae_cyclegan_tpu_torch.parallel import dp, mesh
-from vae_cyclegan_tpu_torch.utils import nan_dump
+from vae_cyclegan_tpu_torch.utils import nan_dump, spans
 
 
 class Task:
@@ -120,6 +120,12 @@ class Task:
             return {"optimizer": self.opt}
         return {"optimizer_G": self.opt_g, "optimizer_D": self.opt_d}
 
+    def _opt_key(self, optimizer: torch.optim.Optimizer) -> str:
+        """`optimizer`'s key in the spans of a step: ``G`` / ``D``, or
+        ``optimizer`` for a task's single one."""
+        key = next(k for k, o in self.optimizers().items() if o is optimizer)
+        return key.removeprefix("optimizer_")
+
     @staticmethod
     def _finite_update(optimizer: torch.optim.Optimizer, loss: torch.Tensor,
                        params: Sequence[nn.Parameter],
@@ -134,17 +140,21 @@ class Task:
         In a data-parallel scope (``parallel.dp``) the loss and the
         gradients are first meaned across the ranks, in one buffer and one
         all_reduce (JAX's pmean in its gate), so every rank takes the same
-        branch and applies the same update."""
-        loss, *grads = dp.sync([loss, *grads])
-        finite = bool(torch.isfinite(loss))
-        if finite:
-            for p, g in zip(params, grads):
-                p.grad = g
-            optimizer.step()
-        elif dump is not None:
+        branch and applies the same update. While a profiler records, the
+        gate is the span ``vct.gate`` and the update ``vct.optimizer``
+        (``utils.spans``)."""
+        with spans.span("vct.gate"):
+            loss, *grads = dp.sync([loss, *grads])
+            finite = bool(torch.isfinite(loss))
+        if not finite and dump is not None:
             dump()
-        for p in params:
-            p.grad = None
+        with spans.span("vct.optimizer"):
+            if finite:
+                for p, g in zip(params, grads):
+                    p.grad = g
+                optimizer.step()
+            for p in params:
+                p.grad = None
         return 0.0 if finite else 1.0
 
     def _step(self, optimizer: torch.optim.Optimizer, loss: torch.Tensor,
@@ -153,8 +163,12 @@ class Task:
         """The gradient of `loss` over `params`, then ``_finite_update``;
         while NaN dumps are enabled, its skip branch dumps `batch` and the
         parameters and gradients under their state_dict names (on the
-        primary rank only, in a process group)."""
-        grads = torch.autograd.grad(loss, params)
+        primary rank only, in a process group). While a profiler records,
+        the gradient is the span ``vct.backward`` under the optimizer's
+        key."""
+        with spans.span("vct.backward", self._opt_key(optimizer),
+                        grad_of=loss):
+            grads = torch.autograd.grad(loss, params)
         if not nan_dump.enabled() or not mesh.is_primary():
             return self._finite_update(optimizer, loss, params, grads)
 

@@ -73,6 +73,7 @@ import torch
 from vae_cyclegan_tpu_torch import kernels
 from vae_cyclegan_tpu_torch.kernels import ops as kernel_ops
 from vae_cyclegan_tpu_torch.parallel import spatial
+from vae_cyclegan_tpu_torch.utils import spans
 
 EPS = 1e-5
 SLAB_BYTES = 1024 * 1024
@@ -424,7 +425,7 @@ def _tiled_forward(x: torch.Tensor, act: str, order: str,
     not divide H*W."""
     if not tiles_fit(x.shape):
         return fused_reference(x, act, order, eps)
-    return kernel_ops.in_act_tiled(x, act, order, eps)
+    return spans.op(kernel_ops.in_act_tiled, x, act, order, eps)
 
 
 class _InActFused(torch.autograd.Function):
@@ -434,7 +435,7 @@ class _InActFused(torch.autograd.Function):
     def forward(ctx, x, act, order, eps):
         ctx.save_for_backward(x)
         ctx.cfg = (act, order, eps)
-        return kernel_ops.in_act(x, act, order, eps)
+        return spans.op(kernel_ops.in_act, x, act, order, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -481,10 +482,14 @@ def _spatial_forward(x: torch.Tensor, act: str, order: str, eps: float,
     which also gives the moments; the split kernels where `kernel`, else
     their plain versions."""
     count = float(x.shape[2] * x.shape[3] * lay.size)
-    stats, apply = ((kernel_ops.in_stats, kernel_ops.in_apply) if kernel
-                    else (in_stats_reference, in_apply_reference))
-    st = spatial.reduce_sum(stats(x, act, order), lay)
-    y, moments = apply(x, st, count, act, order, eps)
+    if kernel:
+        st = spatial.reduce_sum(
+            spans.op(kernel_ops.in_stats, x, act, order), lay)
+        y, moments = spans.op(kernel_ops.in_apply, x, st, count, act, order,
+                              eps)
+    else:
+        st = spatial.reduce_sum(in_stats_reference(x, act, order), lay)
+        y, moments = in_apply_reference(x, st, count, act, order, eps)
     return y, moments[0], moments[1]
 
 
@@ -558,7 +563,7 @@ def instance_norm_act(x: torch.Tensor, *, act: str = "relu",
     if mode == "auto" and slab_fits(x.shape):
         kernels.note_site("in_act", x.shape, x.dtype, act=act, order=order)
         if not grad:
-            return kernel_ops.in_act(x, act, order, eps)
+            return spans.op(kernel_ops.in_act, x, act, order, eps)
         return _InActFused.apply(x, act, order, eps)
     if not grad:
         return fused_reference(x, act, order, eps)

@@ -59,6 +59,7 @@ from vae_cyclegan_tpu_torch.ops.instance_norm import DTYPE_CODES
 from vae_cyclegan_tpu_torch.ops.padding import reflect_pad
 from vae_cyclegan_tpu_torch.ops.reflect_conv import halo_conv, reflect_conv
 from vae_cyclegan_tpu_torch.parallel import spatial
+from vae_cyclegan_tpu_torch.utils import spans
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # padding modes of csrc/starved_conv.cu
@@ -209,13 +210,13 @@ def _zero_same(g: torch.Tensor, wrot: torch.Tensor) -> torch.Tensor:
     k = wrot.shape[-1]
     kernels.note_site("starved_conv_dx", g.shape, g.dtype, k=k,
                       cin=wrot.shape[1], cout=wrot.shape[0])
-    return kernel_ops.starved_conv(g, wrot, "zero_same")
+    return spans.op(kernel_ops.starved_conv, g, wrot, "zero_same")
 
 
 def _dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     kernels.note_site("starved_conv_dw", x.shape, x.dtype, k=k,
                       cin=x.shape[1], cout=g.shape[1])
-    return kernel_ops.starved_dw(x, g, k)
+    return spans.op(kernel_ops.starved_dw, x, g, k)
 
 
 def rotate(w: torch.Tensor) -> torch.Tensor:
@@ -300,7 +301,7 @@ def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return reflect_conv(x, w)
     kernels.note_site("starved_conv", x.shape, x.dtype, k=k, cin=cin,
                       cout=cout)
-    return kernel_ops.starved_conv(x, w, "reflect")
+    return spans.op(kernel_ops.starved_conv, x, w, "reflect")
 
 
 class _StarvedConv(torch.autograd.Function):

@@ -15,8 +15,10 @@ a CUDA device the task raises. The JAX flags map as follows:
   --precision bf16   the bf16 ``ModelConfig`` (parameters stay f32)
   --debug_nans       ``torch.autograd.set_detect_anomaly(True)``, the
                      reference's own toggle
-  --profile_dir      a ``torch.profiler`` trace of the first epoch, written
-                     for TensorBoard's profile tab
+  --profile_dir      a ``torch.profiler`` trace of the first epoch, every
+                     thread, with the port's ``vct.*`` ranges
+                     (``utils.spans``), written for TensorBoard's
+                     profile tab
   --remat            ``ModelConfig.remat``: the generator passes
                      recomputed in the backward (``torch.utils.checkpoint``)
   --device_aug, --decode_cache, --no_nan_dump   as in the JAX driver
@@ -507,12 +509,16 @@ def _train(args, device, output_dir, writer, train_loader, test_loader,
         profiler = None
         if (args.profile_dir is not None and epoch == start_epoch
                 and primary):
+            # every thread, so the copy thread's and the loader's
+            # vct.* ranges (utils.spans) are in the trace too
             profiler = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]
                 + ([torch.profiler.ProfilerActivity.CUDA]
                    if device.type == "cuda" else []),
                 on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                    args.profile_dir))
+                    args.profile_dir),
+                experimental_config=torch.profiler._ExperimentalConfig(
+                    profile_all_threads=True))
             profiler.start()
         train_loss, train_comps, _ = engine.train_epoch(
             train_loader, progress=progress, epoch=epoch,
