@@ -30,6 +30,7 @@ import vae_cyclegan_tpu_torch.data as tdata
 from vae_cyclegan_tpu_torch.data import datasets as tdatasets
 from vae_cyclegan_tpu_torch.data import device_aug as taug
 from vae_cyclegan_tpu_torch.data import native as tnative
+import torch_loader_cases
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AUG_ATOL = 1e-5
@@ -203,6 +204,142 @@ def test_loader_matches_jax(dataset_root, case):
     finally:
         for ld in loaders:
             ld.close()
+
+
+@pytest.fixture(scope="module")
+def s2w_epochal(tmp_path_factory):
+    """A host-augmented Summer2Winter dataset (26 + 14 48x48 JPEGs, flip,
+    crop to 32, colour jitter, uint8) behind ``Epochal``."""
+    root = tmp_path_factory.mktemp("s2w")
+    rng = np.random.RandomState(1)
+    for sub, n in (("trainA", 26), ("trainB", 14)):
+        (root / sub).mkdir()
+        for i in range(n):
+            Image.fromarray((rng.rand(48, 48, 3) * 255).astype(np.uint8)).save(
+                root / sub / f"{i}.jpg")
+    return torch_loader_cases.Epochal(tdata.Summer2WinterDataset(
+        str(root), "train",
+        augment=tdata.AugmentConfig(out_size=32, hflip_p=0.5),
+        color_jitter=tdata.ColorJitterConfig(0.2, 0.2, 0.2, 0.1),
+        uint8_output=True))
+
+
+#: the loaders of one epoch, each over the dataset (a remainder loader over
+#: its first len % 6 samples, as the benchmark warms that batch)
+POOL_CASES = {
+    "whole": dict(batch_size=6, shuffle=True, seed=3, num_workers=3),
+    "shard1of2": dict(batch_size=6, shuffle=True, seed=3, num_workers=3,
+                      shard_index=1, shard_count=2),
+    "remainder": dict(batch_size=2, num_workers=3),
+}
+
+
+def _pool_loader(ds, case, processes):
+    kw = POOL_CASES[case]
+    if case == "remainder":
+        ds = tdata.Subset(ds, range(len(ds) % 6))
+    return tdata.DataLoader(ds, use_processes=processes, **kw)
+
+
+def _epochs(ds, loaders, epochs=2):
+    """Per epoch (``ds.epoch`` set first), each loader's batches, the
+    loaders read in turns, a batch each, so their epochs interleave."""
+    out = []
+    for epoch in range(epochs):
+        ds.epoch = epoch
+        its = [iter(ld) for ld in loaders]
+        got = [[] for _ in loaders]
+        while its:
+            for i, it in list(enumerate(its)):
+                batch = next(it, None)
+                if batch is None:
+                    its[i] = None
+                else:
+                    got[i].append(batch)
+            its = [it for it in its if it is not None]
+        out.append(got)
+    return out
+
+
+def _same_batches(got, want):
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert_items_equal(a, b)
+
+
+@pytest.mark.parametrize("case", sorted(POOL_CASES))
+def test_loader_processes_match_threads(s2w_epochal, case):
+    """Over two epochs with the dataset changed between them, the worker
+    processes give the threads' batches byte for byte: each epoch sends
+    the dataset as it stands (a pool holding the dataset of its spawn
+    would give epoch 0's samples again)."""
+    ds = s2w_epochal
+    procs, threads = (_pool_loader(ds, case, p) for p in (True, False))
+    assert procs.in_processes and not threads.in_processes
+    (p0, t0), (p1, t1) = _epochs(ds, [procs, threads])
+    _same_batches(p0, t0)
+    _same_batches(p1, t1)
+    assert p0[0]["x"].tobytes() != p1[0]["x"].tobytes()
+
+
+def test_loaders_share_one_pool(s2w_epochal):
+    """The three loaders of one process, read in turns, share one pool
+    (each epoch its own generation of the dataset) and give the threads'
+    batches."""
+    ds = s2w_epochal
+    procs = [_pool_loader(ds, c, True) for c in sorted(POOL_CASES)]
+    threads = [_pool_loader(ds, c, False) for c in sorted(POOL_CASES)]
+    pool = tdata.loader._POOL.executor(1)
+    for got, want in zip(_epochs(ds, procs), _epochs(ds, threads)):
+        for g, w in zip(got, want):
+            _same_batches(g, w)
+    assert tdata.loader._POOL.executor(3) is pool
+
+
+@pytest.mark.parametrize("case,want", [
+    ("host_augmented", True), ("raw_frames", False),
+    ("host_augmented_forced_threads", False),
+    ("raw_frames_forced_processes", True)])
+def test_loader_chooses_processes_from_the_samples(dataset_root, s2w_epochal,
+                                                   case, want):
+    """Host-augmented samples are built in processes, raw frames for the
+    card in threads; ``use_processes`` forces either."""
+    if case.startswith("raw_frames"):
+        ds = tdata.HypersimDataset(
+            str(dataset_root / "hypersim"), ["depth", "normal"],
+            augment=tdata.AugmentConfig(out_size=16, hflip_p=0.5),
+            paired_mode=False, raw_mode=True)
+    else:
+        ds = s2w_epochal
+    forced = {"forced_threads": False, "forced_processes": True}
+    use = next((v for k, v in forced.items() if case.endswith(k)), None)
+    loader = tdata.DataLoader(ds, 4, shuffle=True, use_processes=use)
+    assert loader.in_processes is want
+    if case == "raw_frames_forced_processes":
+        threads = tdata.DataLoader(ds, 4, shuffle=True, use_processes=False)
+        _same_batches(list(loader), list(threads))
+
+
+def test_processes_decode_where_the_cache_files_are_gone(dataset_root,
+                                                        tmp_path):
+    """A decode cache attached in this process whose files were removed
+    since (still open here) cannot be attached in a worker: the workers
+    decode from the image files and give the threads' bytes."""
+    cache = tdata.DecodedImageCache(tdata.DecodedImageCache.build(
+        dataset_root / "hypersim", tmp_path / "gone.cache")).attach()
+    try:
+        for path in (cache.cache_path, cache.cache_path.with_suffix(".json")):
+            path.unlink()
+        ds = tdata.HypersimDataset(
+            str(dataset_root / "hypersim"), ["depth", "normal"],
+            augment=tdata.AugmentConfig(out_size=16, hflip_p=0.5),
+            paired_mode=False, uint8_output=True)
+        got, want = (list(tdata.DataLoader(ds, 4, shuffle=True, seed=4,
+                                           use_processes=p))
+                     for p in (True, False))
+        _same_batches(got, want)
+    finally:
+        tdatasets.set_decode_cache(None)
 
 
 def test_cache_matches_jax(dataset_root, tmp_path):

@@ -50,7 +50,7 @@ class ArrDS:
 
 
 local = DataLoader(ArrDS(), batch_size=8, shuffle=True, seed=5, num_workers=1,
-                   shard_index=rank, shard_count=world)
+                   use_processes=False, shard_index=rank, shard_count=world)
 got = []
 for b in local:
     assert b["x"].shape[0] == 4  # this rank's slice of a global batch of 8
@@ -59,7 +59,7 @@ for b in local:
     got.append(torch.cat(parts).numpy())
 # the partial final batch (2 of 18) is dropped on every rank
 ref = [b["x"] for b in DataLoader(ArrDS(), batch_size=8, shuffle=True,
-                                  seed=5, num_workers=1)]
+                                  seed=5, num_workers=1, use_processes=False)]
 assert len(got) == 2 and len(ref) == 3 and ref[2].shape[0] == 2
 for a, b in zip(got, ref):
     np.testing.assert_array_equal(a, b)

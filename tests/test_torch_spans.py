@@ -48,7 +48,8 @@ def _task(arch):
 
 
 def _epoch(engine):
-    return engine.train_epoch(DataLoader(_Frames(), BATCH, num_workers=1),
+    return engine.train_epoch(DataLoader(_Frames(), BATCH, num_workers=1,
+                                         use_processes=False),
                               progress=False)
 
 
@@ -235,6 +236,31 @@ def test_units_are_bounded_and_waits_attached(monkeypatch):
         assert [w["name"] for w in u["waits"]] == ["vct.h2d_wait",
                                                   "vct.loader_wait"]
         assert [s["name"] for s in u["spans"]] == ["vct.generate"]
+
+
+def test_counts_go_to_the_next_unit():
+    """``count`` from another thread adds to the record of the next unit
+    to open, and counts nothing while no profiler records."""
+    import threading
+
+    spans.reset()
+    spans.count("loader_batches.processes")
+    with profile(activities=[ProfilerActivity.CPU]):
+        with spans.unit("vct.step"):
+            pass
+        workers = [threading.Thread(target=spans.count, args=(name,))
+                   for name in ["loader_batches.processes"] * 3
+                   + ["loader_batches.threads"]]
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join(timeout=10)
+        assert not any(t.is_alive() for t in workers)
+        for _ in range(2):
+            with spans.unit("vct.step"):
+                pass
+    assert [u["counts"] for u in spans.units()] == [
+        {}, {"loader_batches.processes": 3, "loader_batches.threads": 1}, {}]
 
 
 def test_train_profile_dir_trace_has_the_ranges(tmp_path):

@@ -156,10 +156,11 @@ def run_cases(inputs: dict, rank: int, world: int, group,
                                        "shard_count": world,
                                        "ragged": "replicate"})
     loader = DataLoader(EpochData(), EPOCH_BATCH, shuffle=True, seed=0,
-                        num_workers=1, **shard)
+                        num_workers=1, use_processes=False, **shard)
     loss, comps, _ = engine.train_epoch(loader, progress=False)
     val_loss, val_comps, gx, _, x, _ = engine.validate(
-        DataLoader(EpochData(), EPOCH_BATCH, num_workers=1, **shard),
+        DataLoader(EpochData(), EPOCH_BATCH, num_workers=1,
+                   use_processes=False, **shard),
         progress=False)
     out["epoch/vae"] = {"loss": loss, "comps": comps, "val_loss": val_loss,
                         "val_comps": val_comps, "gx": gx, "x": x,

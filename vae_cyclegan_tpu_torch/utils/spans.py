@@ -19,14 +19,17 @@ While on:
     autograd engine's device thread, which runs a CUDA backward), the
     process's CPU time, each span opened inside it with its parent, the
     waits of its loop iteration (``Engine.train_epoch``: the copy wait
-    before the step, the loader wait after it) and, per ``vct::`` operator,
-    the calls made through ``op`` and their host ns from call to return;
+    before the step, the loader wait after it), what ``count`` counted
+    since the unit before (the loader's batches, by where they were built)
+    and, per ``vct::`` operator, the calls made through ``op`` and their
+    host ns from call to return;
   * ``timeline`` opens a range and keeps nothing (the copy thread, the
     loader's producer).
 
 Spans and units are opened on one thread, the one that dispatches the
 step; ``op`` is called on it or, in a backward, on the autograd engine's
-thread while that thread waits in ``torch.autograd.grad``.
+thread while that thread waits in ``torch.autograd.grad``; ``count`` on
+any thread.
 """
 
 from __future__ import annotations
@@ -51,12 +54,11 @@ else:  # pragma: no cover - torch without the Python-side flag
     on = torch._C._autograd._profiler_enabled
 
 
-def _range(name: str, unit: Optional[int] = None, key: Optional[str] = None):
-    """A range on the profiler's timeline, a context to enter."""
-    args = {} if unit is None else {"unit": unit}
-    if key is not None:
-        args["key"] = key
-    return torch._C._profiler._RecordFunctionFast(name, [], args)
+def _range(name: str, **args):
+    """A range on the profiler's timeline, a context to enter; its args
+    those of `args` that are not None."""
+    return torch._C._profiler._RecordFunctionFast(
+        name, [], {k: v for k, v in args.items() if v is not None})
 
 
 #: what a site gets while no session records
@@ -73,6 +75,7 @@ class _Unit:
         self.stack: List[int] = []
         self.waits: List[dict] = []
         self.ops: Dict[str, List[int]] = {}
+        self.counts: Dict[str, int] = {}
         #: the autograd engine's CPU ns inside the unit's backward spans
         self.worker_ns = 0
 
@@ -81,22 +84,25 @@ class _Unit:
         return {"name": self.name, "index": self.index, "start_ns": start_ns,
                 "wall_ns": wall_ns, "cpu_ns": cpu_ns + self.worker_ns,
                 "process_ns": process_ns, "spans": self.spans,
-                "waits": self.waits,
+                "waits": self.waits, "counts": self.counts,
                 "ops": {k: {"calls": c, "ns": ns}
                         for k, (c, ns) in self.ops.items()}}
 
 
 class _State:
     """The records of this process: the open unit, the units kept, the waits
-    that belong to the next unit."""
+    and counts that belong to the next unit."""
 
     def __init__(self):
+        #: guards ``counts``, which any thread adds to
+        self.lock = threading.Lock()
         self.reset()
 
     def reset(self) -> None:
         self.current: Optional[_Unit] = None
         self.units: deque = deque(maxlen=MAX_UNITS)
         self.pending: List[dict] = []
+        self.counts: Dict[str, int] = {}
         self.count = 0
 
 
@@ -110,7 +116,8 @@ def units() -> List[dict]:
     dispatching threads'), ``process_ns``, ``spans`` (each ``name``,
     ``key``, ``parent``: the index in ``spans`` of the span it lies in, or
     None directly inside the unit, ``start_ns``, ``wall_ns``, ``cpu_ns``),
-    ``waits`` (each ``name``, ``start_ns``, ``wall_ns``) and ``ops``
+    ``waits`` (each ``name``, ``start_ns``, ``wall_ns``), ``counts``
+    (``{name: n}``, what ``count`` counted before the unit opened) and ``ops``
     (``{"vct::<op>": {"calls", "ns"}}``)."""
     return list(_STATE.units)
 
@@ -131,8 +138,10 @@ class _Root:
         self.unit = u = _Unit(self.name, st.count)
         st.count += 1
         u.waits, st.pending = st.pending, []
+        with st.lock:
+            u.counts, st.counts = st.counts, {}
         st.current = u
-        self.rf = _range(self.name, u.index)
+        self.rf = _range(self.name, unit=u.index)
         self.rf.__enter__()
         self.p0 = time.process_time_ns()
         self.c0 = time.thread_time_ns()
@@ -174,7 +183,8 @@ class _Span:
             if self.key is None:
                 self.key = u.key
             u.key = self.key
-        self.rf = _range(self.name, None if u is None else u.index, self.key)
+        self.rf = _range(self.name, unit=None if u is None else u.index,
+                         key=self.key)
         self.rf.__enter__()
         if u is None:
             return self
@@ -221,9 +231,20 @@ def span(name: str, key: Optional[str] = None, grad_of=None):
     return _Span(name, key, grad_of)
 
 
-def timeline(name: str):
-    """A range on the profiler's timeline while on; no record."""
-    return _range(name) if on() else _OFF
+def timeline(name: str, **args):
+    """A range on the profiler's timeline while on, with `args`; no
+    record."""
+    return _range(name, **args) if on() else _OFF
+
+
+def count(name: str) -> None:
+    """While on, one more `name` in the ``counts`` of the next unit to
+    open; from any thread (the loader's producer)."""
+    if not on():
+        return
+    st = _STATE
+    with st.lock:
+        st.counts[name] = st.counts.get(name, 0) + 1
 
 
 class wait:
