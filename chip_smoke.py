@@ -1582,7 +1582,7 @@ def phase_families(card: str) -> None:
     steps after those two, and one f32 step on the card against the CPU's at
     FAMILY_F32_SIZE."""
     for name in ARCHITECTURES:
-        if name == "cyclevaegan":
+        if name not in FAMILY_STEP_LAUNCHES:
             continue
         tr = train_path(name, "auto", FAMILY_STEP_LAUNCHES[name], 2, name)
         time_steps(tr["task"], (PATH_BATCH,), name, card)

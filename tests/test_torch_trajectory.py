@@ -133,7 +133,7 @@ def test_trajectory_matches_jax(name):
 
 @pytest.mark.slow
 @pytest.mark.parametrize("name", [n for n in ARCHITECTURES
-                                  if n not in GATE])
+                                  if n not in GATE and n != "cyclegan"])
 def test_trajectory_matches_jax_slow(name):
     check_trajectory(name)
 

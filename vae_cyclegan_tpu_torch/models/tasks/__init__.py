@@ -1,5 +1,7 @@
-"""Architecture registry: string name -> Task class, with the ten names of
-the JAX package, every one ported (training, evaluation and serving)."""
+"""Architecture registry: string name -> Task class: the ten names of the
+JAX package, every one ported (training, evaluation and serving), then
+``cyclegan``, the published CycleGAN, which the JAX package does not
+have."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from vae_cyclegan_tpu_torch.models.tasks.cyclegan import (
     CycleVAEGANTask,
 )
 from vae_cyclegan_tpu_torch.models.tasks.gan import AEGANTask, VAEGANTask
+from vae_cyclegan_tpu_torch.models.tasks.resnet_cyclegan import CycleGANTask
 from vae_cyclegan_tpu_torch.models.tasks.simple import (
     AutoencoderTask,
     DoubleAETask,
@@ -31,6 +34,7 @@ ARCHITECTURES: Dict[str, Type[Task]] = {
     "cyclevae": CycleVAETask,
     "cycleaegan": CycleAEGANTask,
     "cyclevaegan": CycleVAEGANTask,
+    "cyclegan": CycleGANTask,
 }
 
 

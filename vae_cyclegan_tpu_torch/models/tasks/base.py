@@ -252,6 +252,13 @@ class Task:
 
     # -- protocol ----------------------------------------------------------
 
+    @classmethod
+    def refuse_parallel(cls, data_ranks: int, rows_split: bool) -> None:
+        """Raise, naming the missing piece, where the task cannot train over
+        `data_ranks` data ranks or with its rows split across ranks
+        (`rows_split`); ``train.py`` asks before it starts any rank. Every
+        task runs on any layout unless it says otherwise here."""
+
     def train_step(self, batch: Mapping, eps: Optional[List] = None,
                    generator: Optional[torch.Generator] = None
                    ) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,4 @@
-"""Training CLI for all 10 architectures on the card.
+"""Training CLI for every architecture of the registry on the card.
 
     python -m vae_cyclegan_tpu_torch.train --architecture cyclevaegan ...
 
@@ -56,9 +56,12 @@ on every host. A SIGTERM to any rank (to the launching process under
 
 Refused, with an error naming its ROADMAP.md item: ``--no_pallas`` (item
 10: no switch turns the port's kernels off, and no caller of the port needs
-a plain-only mode). Under --spatial the kernels stay on: K3 and K4 run on
-each rank's row strips and K2's split kernels (``csrc/in_split.cu``) at the
-InstanceNorm sites that take K1 or K2 in one process.
+a plain-only mode). A layout the task lacks a piece for is refused before
+any rank starts, naming the piece (``Task.refuse_parallel``: ``cyclegan``
+runs on one device, so more than one rank, --multihost and --spatial).
+Under --spatial the kernels stay on: K3 and K4 run on each rank's row
+strips and K2's split kernels (``csrc/in_split.cu``) at the InstanceNorm
+sites that take K1 or K2 in one process.
 """
 
 from __future__ import annotations
@@ -302,11 +305,13 @@ def main(args):
         args.paired = False
 
     refuse_unported(args)
+    refuse_parallel = ARCHITECTURES[args.architecture].refuse_parallel
     device = device_for(args.platform)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device (the driver runs on the card by "
                            "default); pass --platform cpu to run on the CPU")
     if args.multihost:
+        refuse_parallel(2, args.spatial > 1)
         mesh.check_spatial(args.spatial, 1, multihost=True)
         rank_device = mesh.init_from_env(device)
         try:
@@ -314,6 +319,7 @@ def main(args):
         finally:
             mesh.destroy()
     n = mesh.resolve_devices(args.num_devices, device)
+    refuse_parallel(n, args.spatial > 1)
     mesh.check_spatial(args.spatial, n)
     if n > 1:
         output_dir = (Path(args.resume).parent if args.resume
