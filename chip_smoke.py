@@ -13,7 +13,9 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               the card, at the serving and training paths' shapes and at
               edge shapes: IN+act (K1, centered variance, and K2, single-pass;
               both also at the edges of their regimes, in bf16 and f32 with
-              every activation and order, each case repeated bit for bit),
+              every activation and order, each case repeated bit for bit;
+              K1's backward likewise against fused_backward, with its
+              batch-24 times in phase 9),
               the conv in its three
               padding modes (also at shapes that cross its tiles, and bit
               for bit on a second launch), the weight gradient (also at
@@ -23,20 +25,22 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
   4. slice:   the cyclevaegan generator at full width (256x256, base 64,
               latent 64, bf16, seeded random weights) serves requests at
               batch 1, 4 and 16 through run_inference; every generator
-              forward must launch the IN+act kernel 5 times and the conv
-              kernel 2 times; the f32 and the bf16 forward on the card must
-              agree with the port's plain CPU forward in the same dtype, on
-              the same weights and noise
+              forward must launch the IN+act kernel 13 times (every IN site
+              on the card) and the conv kernel 2 times; the f32 and the bf16
+              forward on the card must agree with the port's plain CPU
+              forward in the same dtype, on the same weights and noise
   5. train:   the full-width bf16 task takes three train_steps at batch 4;
-              each step must launch IN+act 46 times, the reflect conv 12, the
-              zero_same conv 14 and the weight gradient 18 times; losses
+              each step must launch IN+act 102 times, the reflect conv 12,
+              the zero_same conv 14, the weight gradient 18 times and K1's
+              backward 96 times; losses
               finite, no skipped update, every parameter moved; eval_step
               and generate; then one f32 train_step at batch 1 on the card
               against the port's CPU step from the same weights and noise
               (metrics, spectral vectors, parameters within one Adam step)
   6. tiled:   the same under instance_norm="tiled": each step launches the
-              tiled IN kernel (K2) 96 times and K1 never, the
-              convs as in 5; the f32 step against the CPU's; step times
+              tiled IN kernel (K2) 96 times, K1 6 times (the U4 sites), K1's
+              backward 96 times, the convs as in 5; the f32 step against the
+              CPU's; step times
   7. families: the nine other architectures at full width, bf16, batch 4:
               two train_steps each (launches per step as the CPU site tests
               derive from the JAX TPU trace), eval_step, generate, a step
@@ -61,7 +65,10 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               the peak rate, whichever is larger), the two IN kernels and
               the plain versions at every tiled site at batch 4 and 24
               (events, device time, the wrappers' host time per call, the
-              byte bound; F.instance_norm at the identity sites), request
+              byte bound; F.instance_norm at the identity sites), K1 and its
+              backward against fused_reference and fused_backward at the
+              port's IN sites at batch 24 (events, device, byte bounds),
+              request
               latency per
               batch size and training step time at batch 4 and 24 (host
               clock, median), device busy time and idle share, peak device
@@ -110,7 +117,7 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               chiprun_out/drivers.log)
  12. export, remat, trajectories: the full-width bf16 cyclevaegan
               generator exported with a symbolic batch
-              (``utils.export``), saved and loaded: its graph holds 5
+              (``utils.export``), saved and loaded: its graph holds 13
               vct::in_act and 2 vct::starved_conv nodes, at batch 1 and 4
               it launches K1 and K3 as generate does and its output equals
               generate's (bit for bit, else within the bf16 tolerance),
@@ -118,7 +125,7 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               load seconds; batch-24 steps with and without remat
               (``ModelConfig.remat``): one step's metrics on the same noise
               (bit for bit, else within rtol 2e-3), launches per step (the
-              recompute adds 5 K1 and 2 K3 per generator pass), step time
+              recompute adds 13 K1 and 2 K3 per generator pass), step time
               and peak memory, remat's below the other's; for each of three
               seeds (batch, noise, init), 10 steps of the paired batch-4
               task in bf16, f32 and four one-ulp twins of f32 (``python -m
@@ -136,8 +143,8 @@ kernels are built for sm_90a) and nvcc. Phases, one line per finding:
               full-width bf16 paired cyclevaegan at batch 24 through
               ``Engine(task, seed, group)``: its first step's synced
               gradients (both optimizers) and metrics bit for bit the
-              local ones, its launches those of the plain step (46 / 0 /
-              12 / 14 / 18), its metrics within the range of three plain
+              local ones, its launches those of the plain step (102 / 0 /
+              12 / 14 / 18 / 96), its metrics within the range of three plain
               runs from the same state widened by their largest pairwise
               gap, its parameters within one Adam step; step medians (5
               after 2 warm-ups) in turns plain, world 1, world 1, plain,
@@ -229,7 +236,9 @@ from vae_cyclegan_tpu_torch.ops.instance_norm import (
     DTYPE_CODES,
     EPS,
     ORDERS,
+    fused_backward,
     fused_reference,
+    in_act_bwd_cuda,
     in_act_cuda,
     in_act_tiled_cuda,
     in_apply_cuda,
@@ -316,26 +325,34 @@ TRAIN_CONVS = [("head", 3, BASE, 7), ("U4", BASE // 2, BASE, 3),
 # the kernels' wrappers, each with its launch count, and their names in the
 # summary line
 WRAPPERS = (in_act_cuda, in_act_tiled_cuda, reflect_conv_cuda, zero_conv_cuda,
-            dw_cuda)
+            dw_cuda, in_act_bwd_cuda)
 KERNEL_NAMES = ("in_act", "in_act_tiled", "starved_conv",
-                "starved_conv_zero_same", "starved_conv_dw")
+                "starved_conv_zero_same", "starved_conv_dw", "in_act_bwd")
 # launches per train_step in WRAPPERS order. cyclevaegan: 6 generator passes
-# x 5 IN sites + 8 discriminator passes x 2; U4 and tail forward in each
-# generator pass; dx of U4 and the tail in every pass and of the head where
-# its input is a generator output (F(Gx), G(Fy)); dw of the three convs in
-# every pass. Under "tiled" the tiled kernel takes 12 of a generator
-# pass's 13 IN sites (not U4's) and a discriminator pass's 3. The CPU site
-# tests hold the same counts against the JAX package's TPU trace
+# x 13 IN sites + 8 discriminator passes x 3, every one K1 on the card
+# (ops/instance_norm.py::site_kernel; JAX's rule gives K1 46 of them, the 5
+# 16x16x1024 sites of a generator pass and 2 of a discriminator pass's);
+# U4 and tail forward in each generator pass; dx of U4 and the tail in every
+# pass and of the head where its input is a generator output (F(Gx), G(Fy));
+# dw of the three convs in every pass; K1's backward at the 96 IN sites a
+# gradient reaches (two discriminator passes' 6 take none). Under "tiled" the
+# tiled kernel takes 12 of a generator pass's 13 IN sites (not U4's, which
+# takes K1) and a discriminator pass's 3. The CPU site tests hold the kernel
+# sites of JAX's rules against the JAX package's TPU trace
 # (tests/test_torch_train.py, test_torch_tiled.py, test_torch_families_*.py)
-STEP_LAUNCHES = (46, 0, 12, 14, 18)
-TILED_STEP_LAUNCHES = (0, 96, 12, 14, 18)
+JAX_K1_SITES = 46
+STEP_LAUNCHES = (102, 0, 12, 14, 18, 96)
+TILED_STEP_LAUNCHES = (6, 96, 12, 14, 18, 96)
 FAMILY_STEP_LAUNCHES = {
-    "autoencoder": (5, 0, 2, 2, 3), "vae": (5, 0, 2, 2, 3),
-    "doubleae": (10, 0, 4, 4, 6), "doublevae": (10, 0, 4, 4, 6),
-    "aegan": (18, 0, 4, 4, 6), "vaegan": (18, 0, 4, 4, 6),
-    "cycleae": (20, 0, 8, 10, 12), "cyclevae": (20, 0, 8, 10, 12),
-    "cycleaegan": (46, 0, 12, 14, 18),
+    "autoencoder": (13, 0, 2, 2, 3, 13), "vae": (13, 0, 2, 2, 3, 13),
+    "doubleae": (26, 0, 4, 4, 6, 26), "doublevae": (26, 0, 4, 4, 6, 26),
+    "aegan": (38, 0, 4, 4, 6, 35), "vaegan": (38, 0, 4, 4, 6, 35),
+    "cycleae": (52, 0, 8, 10, 12, 52), "cyclevae": (52, 0, 8, 10, 12, 52),
+    "cycleaegan": (102, 0, 12, 14, 18, 96),
 }
+# a generator forward's launches (serving, the exported program): its 13 IN
+# sites on K1, U4's and the tail's reflect conv on K3
+GENERATE_LAUNCHES = (13, 0, 2, 0, 0, 0)
 TRAIN_BATCHES = (PATH_BATCH, 24)   # 24: bench.py's default batch
 # the tiled IN kernel's sites at batch 4, (shape, act, order): the
 # generator's (CaSb head, D blocks, R block, U blocks) and the
@@ -448,8 +465,13 @@ STEP_METRIC_RTOL = 2e-3
 # sites), device_augment on the card against the CPU's (f32 products in
 # another order: allclose atol), and the bench child's time limit
 DATA_BATCHES = 3
-UNPAIRED_STEP_LAUNCHES = tuple(bench.UNPAIRED_STEP_LAUNCHES.get(n, 0)
-                               for n in KERNEL_NAMES)
+# bench.UNPAIRED_STEP_LAUNCHES counts K1 at JAX's 46 sites; on the card all
+# 102 IN sites of the unpaired step take K1, and the 70 a gradient reaches
+# (two generator passes' 26 and two discriminator passes' 6 take none) its
+# backward; the bench counts no backward
+BENCH_CARD_LAUNCHES = {**bench.UNPAIRED_STEP_LAUNCHES, "in_act": 102}
+UNPAIRED_STEP_LAUNCHES = tuple({**BENCH_CARD_LAUNCHES, "in_act_bwd": 70}.get(
+    n, 0) for n in KERNEL_NAMES)
 AUG_TOL = (1e-4, 0.0)
 BENCH_TIMEOUT = 600
 # the bench child's depth (its defaults: 10 and 12)
@@ -1081,13 +1103,13 @@ def phase_slice() -> dict:
         before = _counts()
         outs.append(run_inference(task, {"x": x}, seed=seed))
         per = tuple(a - b for a, b in zip(_counts(), before))
-        require(per == (5, 0, 2, 0, 0),
+        require(per == GENERATE_LAUNCHES,
                 f"batch {x.shape[0]}: {per} launches of {KERNEL_NAMES}, "
-                "expected 5 in_act and 2 starved_conv")
+                "expected 13 in_act and 2 starved_conv")
     _no_experiment_launches("slice")
     launches = {k: v for k, v in _launches().items() if v}
     say(f"slice: {len(requests)} requests (batch {BATCHES}), launches "
-        f"{launches}: 5 in_act + 2 starved_conv per generator forward ok")
+        f"{launches}: 13 in_act + 2 starved_conv per generator forward ok")
     for x, out in zip(requests, outs):
         require(out.shape == x.shape and out.dtype == np.float32,
                 f"output {out.shape} {out.dtype}")
@@ -1277,13 +1299,15 @@ def check_f32_step(name: str, instance_norm: str, size: tuple, batch: int,
 # the hand kernels of the training path by the CUDA functions the profiler
 # names (K3: starved_conv.cu, K4: starved_dw.cu, K1: in_act.cu and K2:
 # in_act_tiled.cu, both in_plane.cuh's kernels, told apart by their variance
-# formula), and the wrappers that launch them
+# formula; K1's backward: in_act_bwd.cu), and the wrappers that launch them
 HAND_KERNELS = {"K3": ("::conv_kernel<",),
                 "K4": ("::dw_gemm_kernel<", "::dw_reduce_kernel("),
                 "K1": ("plane_kernel<vct::Centered",),
-                "K2": ("plane_kernel<vct::SinglePass",)}
+                "K2": ("plane_kernel<vct::SinglePass",),
+                "K1 backward": ("_bwd_kernel<",)}
 HAND_WRAPPERS = {"K3": (reflect_conv_cuda, zero_conv_cuda), "K4": (dw_cuda,),
-                 "K1": (in_act_cuda,), "K2": (in_act_tiled_cuda,)}
+                 "K1": (in_act_cuda,), "K2": (in_act_tiled_cuda,),
+                 "K1 backward": (in_act_bwd_cuda,)}
 
 
 def hand_launches() -> dict:
@@ -1563,6 +1587,144 @@ def phase_in_times(card: str) -> dict:
                 f"{host['K1']:.1f} us; bound {b_ms:.5f} ms (bytes) [{card}]")
             del x
     return out
+
+
+# K1's backward (csrc/in_act_bwd.cu) holds x and the cotangent: its regimes'
+# thresholds count the bytes of both planes, half the forward's plane each
+BWD_PLANE_LIMITS = tuple((limit // 2, name) for limit, name in PLANE_LIMITS)
+# (C, H, W) of the port's IN sites: CycleGAN's c7s1 head and trunk, the
+# cycle generators' D/R/U blocks, the discriminators'; 31x31 is not a
+# multiple of the 16-byte vector
+BWD_SITES = [(64, 256, 256), (128, 128, 128), (256, 64, 64), (512, 32, 32),
+             (512, 31, 31), (1024, 16, 16)]
+# the backward's f32 operations per element: h and act', the sum, the
+# centered square and its sum, hh, d, the two sums, and dx's four
+IN_BWD_OPS_PER_ELEMENT = 16
+
+
+def bwd_regime(hw: int, dtype) -> str:
+    nbytes = hw * torch.empty((), dtype=dtype).element_size()
+    return next((name for limit, name in BWD_PLANE_LIMITS if nbytes <= limit),
+                "stream")
+
+
+def bwd_plane_edges(dtype) -> list:
+    """NCHW shapes at the backward's regime edges (tests/test_torch_kernels.py
+    BWD_PLANE_CASES): each threshold and one 16-byte vector either side,
+    planes of hw one off each threshold (not a multiple of the vector), a
+    plane past every threshold, and 11 and 15 planes of 8x8."""
+    size = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // size
+    shapes = []
+    for limit, _ in BWD_PLANE_LIMITS:
+        hw = limit // size
+        shapes += [(1, 3, vec, hw // vec + d) for d in (-1, 0, 1)]
+        shapes += [(1, 2, 1, hw - 1), (1, 2, 1, hw + 1)]
+    return shapes + [(1, 2, 363, 363), (1, 11, 8, 8), (3, 5, 8, 8)]
+
+
+def in_act_bwd_bound(shape, dtype) -> dict:
+    """K1's backward over one NCHW tensor: x and g read once, dx written
+    once."""
+    n = int(np.prod(shape))
+    size = torch.empty((), dtype=dtype).element_size()
+    return bound(3 * n * size, IN_BWD_OPS_PER_ELEMENT * n, "f32")
+
+
+def check_in_bwd(label: str, x, g, act: str, order: str,
+                 quiet: bool = False) -> float:
+    """K1's backward against fused_backward, then a second launch bit for
+    bit (fixed-order sums, no atomics)."""
+    got = in_act_bwd_cuda(x, g, act, order)
+    err = compare(label, got, fused_backward(x, g, act, order), quiet=quiet)
+    require(torch.equal(in_act_bwd_cuda(x, g, act, order), got),
+            f"{label}: a second launch gave other bits")
+    return err
+
+
+def phase_in_bwd(card: str) -> dict:
+    """K1's backward against fused_backward: at the port's IN sites at batch
+    2, in bf16 and f32, every activation and order; at its regimes' edges
+    (the plan the library takes is the regime the thresholds name; the
+    path's bf16 planes never loop over device memory); x and g one element
+    into their storage. Then at the sites at batch 24 (bf16; the big planes
+    beyond the 50 MB L2): the kernel, fused_backward, K1 and fused_reference,
+    CUDA events and device time per call, beside the byte bounds. Returns
+    the kernels line's row: the CycleGAN trunk site (24, 256, 64, 64),
+    relu/norm_act."""
+    b16, f32 = torch.bfloat16, torch.float32
+    err, n = 0.0, 0
+    for dtype in (b16, f32):
+        vec = 16 // torch.empty((), dtype=dtype).element_size()
+        for side in (16, 32, 64, 128, 256):
+            plan = plane_plan(side * side, dtype, backward=True)
+            require(plan["regime"] == bwd_regime(side * side, dtype)
+                    and (dtype != b16 or plan["regime"] != "stream"),
+                    f"in_act_bwd: plan of {side}x{side} {dtype}: {plan}")
+        shapes = [(2,) + site for site in BWD_SITES] + bwd_plane_edges(dtype)
+        for shape in shapes:
+            hw = shape[2] * shape[3]
+            plan = plane_plan(hw, dtype, hw % vec == 0, backward=True)
+            require(plan["regime"] == bwd_regime(hw, dtype),
+                    f"in_act_bwd: plan of {shape} {dtype}: {plan}")
+            x = randn(shape, 700 + n, dtype, 2.0) + 0.5
+            g = randn(shape, 701 + n, dtype)
+            for act in ACTS:
+                for order in ORDERS:
+                    label = (f"in_act_bwd {shape} {str(dtype)[6:]} "
+                             f"{act}/{order} ({plan['regime']})")
+                    err = max(err, check_in_bwd(label, x, g, act, order,
+                                                quiet=True))
+                    n += 1
+        for which in ("x", "g"):
+            shape, numel = (2, 64, 64, 64), 2 * 64 * 64 * 64
+            x = randn(shape, 702, dtype, 2.0) + 0.5
+            g = randn(shape, 703, dtype)
+            if which == "x":
+                x = randn((numel + 1,), 702, dtype, 2.0)[1:].view(shape)
+            else:
+                g = randn((numel + 1,), 703, dtype)[1:].view(shape)
+            err = max(err, check_in_bwd(
+                f"in_act_bwd unaligned {which} {shape} {str(dtype)[6:]}", x,
+                g, "relu", "act_norm"))
+    say(f"in_act_bwd: {n} cases at the path's sites (batch 2) and the "
+        f"regimes' edges (bf16 and f32, every activation and order), and "
+        f"unaligned x and g; max_abs_err {err:.3e}, each repeated bit for "
+        "bit; bf16 path planes on chip")
+    row = None
+    for c, h, w in BWD_SITES:
+        shape = (24, c, h, w)
+        x = randn(shape, 710, b16, 2.0) + 0.5
+        g = randn(shape, 711, b16)
+        for act, order in (("relu", "norm_act"), ("relu", "act_norm")):
+            fns = {"K1 backward": lambda: in_act_bwd_cuda(x, g, act, order),
+                   "fused_backward": lambda: fused_backward(x, g, act, order),
+                   "K1": lambda: in_act_cuda(x, act, order),
+                   "fused_reference": lambda: fused_reference(x, act,
+                                                              order)}
+            ms = time_calls(fns, 20)
+            dev = {"K1 backward": kernel_device_ms(
+                       fns["K1 backward"], 20, HAND_KERNELS["K1 backward"]),
+                   "K1": kernel_device_ms(fns["K1"], 20, HAND_KERNELS["K1"])}
+            dev.update({k: profiled(fns[k], 20)[0] for k in fns
+                        if k not in dev})
+            bwd_b = in_act_bwd_bound(shape, b16)
+            fwd_b = in_act_bound(shape, b16)
+            say(f"time IN site {shape} {act}/{order} bf16 (backward plan "
+                f"{plane_plan(h * w, b16, backward=True)['regime']}), CUDA "
+                "events / device per call: " + ", ".join(
+                    f"{k} {v:.4f} / {ms_text(dev[k])} ms"
+                    for k, v in ms.items())
+                + f"; bound backward {bwd_b['bound_ms']:.5f} ms "
+                f"({bwd_b['bound_by']}), forward {fwd_b['bound_ms']:.5f} ms "
+                f"({fwd_b['bound_by']}) [{card}]")
+            if (c, h, w, order) == (256, 64, 64, "norm_act"):
+                row = {"ms": ms["K1 backward"],
+                       "device_ms": dev["K1 backward"],
+                       "plain_ms": ms["fused_backward"],
+                       "plain_device_ms": dev["fused_backward"], **bwd_b}
+        del x, g
+    return {"max_abs_err": err, "times": row}
 
 
 def phase_tiled_train(card: str) -> dict:
@@ -1942,9 +2104,9 @@ def _bench_child(card: str) -> dict:
             f"bench e2e {out['e2e_loader_images_per_sec']}")
     require(out["e2e_batches_per_epoch"] >= 2,
             f"bench e2e epoch of {out['e2e_batches_per_epoch']} batches")
-    require(out["launches_per_step"] == bench.UNPAIRED_STEP_LAUNCHES,
+    require(out["launches_per_step"] == BENCH_CARD_LAUNCHES,
             f"bench launches_per_step {out['launches_per_step']}, expected "
-            f"{bench.UNPAIRED_STEP_LAUNCHES}")
+            f"{BENCH_CARD_LAUNCHES}")
     require(out["device"] == card, f"bench device {out['device']}")
     require(out["unified"] == {"backend": "nccl", "world_size": 1},
             f"bench unified {out['unified']}")
@@ -2411,9 +2573,9 @@ EXPORT_ITERS = 25
 # remat's batch: bench.py's default, where the memory it saves matters
 REMAT_BATCH = 24
 # one remat step's extra launches per generator pass: the recompute runs
-# the pass's forward again (5 K1 and U4's and the tail's K3 reflect; the
-# CPU test tests/test_torch_remat.py derives the same from the sites)
-REMAT_PASS_LAUNCHES = (5, 0, 2, 0, 0)
+# the pass's forward again (13 K1 and U4's and the tail's K3 reflect; the
+# CPU test tests/test_torch_remat.py derives the sites of JAX's rules)
+REMAT_PASS_LAUNCHES = GENERATE_LAUNCHES
 # the trajectories: steps at the path's batch, and the bar on the bf16
 # trajectory's means against f32's. Per seed (batch, noise and init), the bar
 # is max(TRAJ_BAR, TRAJ_BAND x that seed's f32 one-ulp band), the band the
@@ -2480,7 +2642,8 @@ def _phase_export(card: str, td: Path) -> None:
     for node in program.graph.nodes:
         if node.op == "call_function" and str(node.target).startswith("vct."):
             nodes[str(node.target)] = nodes.get(str(node.target), 0) + 1
-    require(nodes == {"vct.in_act.default": 5, "vct.starved_conv.default": 2},
+    require(nodes == {"vct.in_act.default": 13,
+                      "vct.starved_conv.default": 2},
             f"export: vct nodes {nodes}")
     require(served.device.type == "cuda" and served.meta["batch"] == "symbolic",
             f"export: loaded on {served.device}, batch {served.meta['batch']}")
@@ -2502,7 +2665,8 @@ def _phase_export(card: str, td: Path) -> None:
             torch.cuda.synchronize()
             generate_launches = _counts()
             _no_experiment_launches("export")
-            require(program_launches == generate_launches == (5, 0, 2, 0, 0),
+            require(program_launches == generate_launches ==
+                    GENERATE_LAUNCHES,
                     f"export batch {b}: the program launched "
                     f"{program_launches}, generate {generate_launches} of "
                     f"{KERNEL_NAMES}")
@@ -3136,11 +3300,12 @@ _prev_split = {}
 STATS_OPS, APPLY_OPS = 3, 4
 # the two-rank steps' global batch, and a rank's launches per paired
 # cyclevaegan bf16 step in WRAPPERS + SPLIT_WRAPPERS order: the K3/K4 sites
-# of one process, K2's split at its 46 K1 sites, no K1 or K2; under "tiled",
-# at K2's 96 sites
+# of one process, K2's split at the 46 sites JAX's rule gives K1, no K1, K2
+# or K1's backward; under "tiled", at K2's 96 sites
 SP_BATCH = PATH_BATCH
-SP_STEP_LAUNCHES = (0, 0) + STEP_LAUNCHES[2:] + (STEP_LAUNCHES[0],) * 2
-SP_TILED_STEP_LAUNCHES = ((0, 0) + TILED_STEP_LAUNCHES[2:]
+SP_STEP_LAUNCHES = ((0, 0) + STEP_LAUNCHES[2:5] + (0,)
+                    + (JAX_K1_SITES,) * 2)
+SP_TILED_STEP_LAUNCHES = ((0, 0) + TILED_STEP_LAUNCHES[2:5] + (0,)
                           + (TILED_STEP_LAUNCHES[1],) * 2)
 SP_WARMUP, SP_STEPS = 1, 3
 # the scope of 1 against the plain step (two formulas: single-pass
@@ -3677,6 +3842,7 @@ def main() -> None:
     tiled_launches = phase_tiled_train(card)
     torch.cuda.empty_cache()
     times.update(phase_in_times(card))
+    in_bwd = phase_in_bwd(card)
     phase_families(card)
     torch.cuda.empty_cache()
     errs.update(phase_experiment_kernels())
@@ -3714,6 +3880,14 @@ def main() -> None:
          "max_abs_err": errs["in_act"],
          # the identity site at batch 4
          **measured(times[("in_act", PATH_BATCH)])},
+        {"name": "in_act_bwd", "route": "cuda",
+         "source": "vae_cyclegan_tpu_torch/csrc/in_act_bwd.cu",
+         # the JAX package's VJP is jnp (_fused_tpu_bwd), left to XLA
+         "replaces": None,
+         "launches": launches["in_act_bwd"],
+         "max_abs_err": in_bwd["max_abs_err"],
+         # CycleGAN's trunk site at batch 24, relu/norm_act
+         **measured(in_bwd["times"])},
         {"name": "in_act_tiled", "route": "cuda",
          "source": "vae_cyclegan_tpu_torch/csrc/in_act_tiled.cu",
          "replaces": "vae_cyclegan_tpu/ops/instance_norm.py:180",

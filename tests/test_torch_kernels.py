@@ -25,7 +25,9 @@ from vae_cyclegan_tpu_torch.ops.instance_norm import (
     ACTS,
     EPS,
     ORDERS,
+    fused_backward,
     fused_reference,
+    in_act_bwd_cuda,
     in_act_cuda,
     in_act_tiled_cuda,
     in_apply_cuda,
@@ -174,6 +176,115 @@ def test_in_kernels_hold_the_path_planes_on_chip(cuda, side, dtype):
         assert plan["regime"] == "cluster" and plan["cluster"] == 8
 
 
+# K1's backward (csrc/in_act_bwd.cu) holds x and the cotangent: its regimes'
+# thresholds count the bytes of both planes, so each sits at half the plane
+# of the forward's
+BWD_PLANE_LIMITS = tuple((limit // 2, name) for limit, name in PLANE_LIMITS)
+# the IN sites of the port's configurations at batch 2 (CycleGAN's c7s1 and
+# trunk, the cycle generators' D/R/U blocks, the discriminators') and a plane
+# that is not a multiple of the 16-byte vector (31x31)
+BWD_PATH_SHAPES = [(2, 64, 256, 256), (2, 128, 128, 128), (2, 256, 64, 64),
+                   (2, 512, 32, 32), (2, 512, 31, 31), (2, 1024, 16, 16)]
+
+
+def _bwd_regime(hw, dtype):
+    nbytes = hw * torch.empty((), dtype=dtype).element_size()
+    return next((name for limit, name in BWD_PLANE_LIMITS
+                 if nbytes <= limit), "stream")
+
+
+def _bwd_plane_cases(dtype):
+    """(dtype, shape) at each threshold of the backward's regimes and one
+    16-byte vector either side; planes whose hw is not a multiple of the
+    vector on either side of each threshold (bf16: 511, 513, 8191, 8193,
+    65535, 65537 elements; f32 half those, and 131769: a cluster looping
+    over device memory in both); 11 and 15 planes of 8x8, which do not fill
+    the last block of eight warps."""
+    size = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // size
+    shapes = []
+    for limit, _ in BWD_PLANE_LIMITS:
+        hw = limit // size
+        shapes += [(1, 3, vec, hw // vec + d) for d in (-1, 0, 1)]
+        shapes += [(1, 2, 1, hw - 1), (1, 2, 1, hw + 1)]
+    shapes += [(1, 2, 363, 363), (1, 11, 8, 8), (3, 5, 8, 8)]
+    return [(dtype, shape) for shape in shapes]
+
+
+BWD_PLANE_CASES = (_bwd_plane_cases(torch.bfloat16)
+                   + _bwd_plane_cases(torch.float32))
+
+
+def _check_bwd(x, g, act, order):
+    """in_act_bwd against fused_backward on the same x and cotangent, and a
+    second launch bit for bit (fixed-order sums, no atomics)."""
+    before = in_act_bwd_cuda.launches
+    got = in_act_bwd_cuda(x, g, act, order)
+    _assert_close(got, fused_backward(x, g, act, order))
+    assert torch.equal(in_act_bwd_cuda(x, g, act, order), got)
+    assert in_act_bwd_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", BWD_PATH_SHAPES)
+@pytest.mark.parametrize("act", list(ACTS))
+@pytest.mark.parametrize("order", ORDERS)
+def test_in_act_bwd_kernel_matches_plain(cuda, shape, dtype, act, order):
+    """K1's backward at the path's sites, every activation and order."""
+    x = _randn(shape, 50, cuda, dtype, 2.0) + 0.5
+    _check_bwd(x, _randn(shape, 51, cuda, dtype), act, order)
+
+
+@pytest.mark.parametrize("act", list(ACTS))
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("dtype,shape", BWD_PLANE_CASES)
+def test_in_act_bwd_kernel_at_plane_regime_edges(cuda, dtype, shape, act,
+                                                 order):
+    """K1's backward at the edges of its regimes (x and g counted
+    together): the plan the library takes is the regime the thresholds
+    name; the kernel against fused_backward, bit for bit on a rerun."""
+    hw = shape[2] * shape[3]
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    plan = plane_plan(hw, dtype, hw % vec == 0, backward=True)
+    assert plan["regime"] == _bwd_regime(hw, dtype)
+    x = _randn(shape, 52, cuda, dtype, 2.0) + 0.5
+    _check_bwd(x, _randn(shape, 53, cuda, dtype), act, order)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("side", [16, 32, 64, 128, 256])
+def test_in_act_bwd_holds_the_path_planes_on_chip(cuda, side, dtype):
+    """The path's bf16 planes with their cotangents: 16x16 a warp, 32x32
+    and 64x64 a CTA, 128x128 a cluster of 4 and 256x256 a cluster of 8; in
+    f32 each a regime later, 256x256 looping over device memory."""
+    plan = plane_plan(side * side, dtype, backward=True)
+    assert plan["vec"] == 16 // torch.empty((), dtype=dtype).element_size()
+    assert plan["regime"] == _bwd_regime(side * side, dtype)
+    if dtype == torch.bfloat16:
+        assert plan["regime"] != "stream"
+        if side >= 128:  # a CTA per 16 KB of the two planes, at most 8
+            assert plan["cluster"] == min(8, side * side // 4096)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("which", ["x", "g"])
+def test_in_act_bwd_kernel_takes_unaligned_views(cuda, dtype, which):
+    """x or g one element into its storage is not 16-byte aligned: the
+    kernel takes its one-element loads, and agrees."""
+    shape = (2, 64, 64, 64)
+
+    def tensor(name, seed, scale):
+        if name != which:
+            return _randn(shape, seed, cuda, dtype, scale)
+        flat = _randn((2 * 64 * 64 * 64 + 1,), seed, cuda, dtype, scale)
+        return flat[1:].view(shape)
+
+    x, g = tensor("x", 54, 2.0), tensor("g", 55, 1.0)
+    assert (x if which == "x" else g).data_ptr() % 16 != 0
+    _check_bwd(x, g, "relu", "act_norm")
+    _check_bwd(x, g, "leaky_relu", "norm_act")
+
+
 # the tiled configuration's sites at batch 2 (generator: 256x256x64 ...
 # 16x16x1024; discriminator: 64x64x128 ... 16x16x512, among them) and edge
 # shapes: planes that are not a multiple of the 16-byte vector (75x67 and
@@ -279,16 +390,17 @@ def test_in_act_tiled_kernel_takes_unaligned_views(cuda, dtype):
                                        ("leaky_relu", "norm_act")])
 def test_in_act_tiled_function_gradients_match_plain_autograd(cuda, dtype, act,
                                                               order):
-    """instance_norm_act under "tiled" at a 128x128x64 slab: one K2 launch,
-    y against tiled_reference and dx (the centered backward) against
-    autograd of tiled_reference."""
+    """instance_norm_act under "tiled" at a 128x128x64 slab: one K2 launch
+    and one of K1's backward, y against tiled_reference and dx (the centered
+    backward) against autograd of tiled_reference."""
     x = _randn((2, 64, 128, 128), 22, cuda, dtype, 2.0) + 0.5
     gy = _randn((2, 64, 128, 128), 23, cuda, dtype)
-    before = in_act_tiled_cuda.launches
+    before = (in_act_tiled_cuda.launches, in_act_bwd_cuda.launches)
     xa = x.clone().requires_grad_()
     y = instance_norm_act(xa, act=act, order=order, mode="tiled")
     (dx,) = torch.autograd.grad(y, xa, gy)
-    assert in_act_tiled_cuda.launches == before + 1
+    assert (in_act_tiled_cuda.launches - before[0],
+            in_act_bwd_cuda.launches - before[1]) == (1, 1)
     xb = x.clone().requires_grad_()
     y_ref = tiled_reference(xb, act, order)
     (dx_ref,) = torch.autograd.grad(y_ref, xb, gy)
@@ -426,18 +538,24 @@ def test_conv_function_gradients_match_plain_autograd(cuda, h, w, cin, cout,
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(4, 1024, 16, 16), (2, 64, 128, 128)])
+@pytest.mark.parametrize("shape", [(4, 1024, 16, 16), (2, 64, 128, 128),
+                                   (2, 64, 256, 256)])
 @pytest.mark.parametrize("act", ["relu", "leaky_relu", "identity"])
 @pytest.mark.parametrize("order", ["norm_act", "act_norm"])
 def test_in_act_function_gradients_match_plain_autograd(cuda, shape, dtype,
                                                         act, order):
-    """instance_norm_act's (y, dx), kernel site (16x16x1024) and big slab
-    (128x128x64, plain), against autograd of the plain version."""
+    """instance_norm_act's (y, dx) at a slab JAX's rule gives the kernel
+    (16x16x1024) and at big slabs (128x128x64, 256x256x64), against
+    autograd of the plain version: on the card each is one K1 launch and
+    one launch of its backward."""
     x = _randn(shape, 18, cuda, dtype, 2.0) + 0.5
     gy = _randn(shape, 19, cuda, dtype)
+    before = (in_act_cuda.launches, in_act_bwd_cuda.launches)
     xa = x.clone().requires_grad_()
     y = instance_norm_act(xa, act=act, order=order)
     (dx,) = torch.autograd.grad(y, xa, gy)
+    assert (in_act_cuda.launches - before[0],
+            in_act_bwd_cuda.launches - before[1]) == (1, 1)
     xb = x.clone().requires_grad_()
     y_ref = fused_reference(xb, act, order)
     (dx_ref,) = torch.autograd.grad(y_ref, xb, gy)
@@ -446,11 +564,19 @@ def test_in_act_function_gradients_match_plain_autograd(cuda, shape, dtype,
 
 
 def test_dispatchers_launch_the_kernels_on_cuda(cuda):
-    x = _randn((2, 64, 16, 16), 3, cuda, torch.bfloat16)
-    before = in_act_cuda.launches
-    y = instance_norm_act(x, act="relu", order="act_norm")
-    assert in_act_cuda.launches == before + 1
-    _assert_close(y, fused_reference(x, "relu", "act_norm"))
+    """K1 at every in-process site on the card, whatever the slab's size
+    and the mode (but for K2's sites), and K3 where its rule picks it."""
+    for shape, mode in (((2, 64, 16, 16), "auto"), ((2, 256, 64, 64), "auto"),
+                        ((2, 64, 128, 128), "plain"),
+                        ((2, 64, 128, 128), "tiled")):
+        x = _randn(shape, 3, cuda, torch.bfloat16)
+        before = (in_act_cuda.launches, in_act_tiled_cuda.launches)
+        y = instance_norm_act(x, act="relu", order="act_norm", mode=mode)
+        tiled = mode == "tiled"
+        assert (in_act_cuda.launches - before[0],
+                in_act_tiled_cuda.launches - before[1]) == (1 - tiled, tiled)
+        plain = tiled_reference if tiled else fused_reference
+        _assert_close(y, plain(x, "relu", "act_norm"))
     x = _randn((2, 32, 64, 64), 4, cuda, torch.bfloat16)
     w = _randn((64, 32, 3, 3), 5, cuda, torch.bfloat16, 0.05)
     before = reflect_conv_cuda.launches
@@ -517,8 +643,11 @@ def test_slice_on_cuda_launches_each_picked_site_and_matches_cpu(cuda):
 
 
 def test_tiled_slice_on_cuda_launches_each_picked_site_and_matches_cpu(cuda):
-    """generate under "tiled" at 64 px, base 16: K2 at every picked site
-    and never K1; the card's f32 output against the CPU's."""
+    """generate under "tiled" at 64 px, base 16: K2 at every site it takes
+    and K1 at the others (on the card every site not on K2 takes K1: the
+    Decoder's U4 site where its convs would go channel-major, and planes
+    the tiled kernel's rows do not divide); the card's f32 output against
+    the CPU's."""
     model = ModelConfig(64, 8, 16, instance_norm="tiled")
     gpu = create_task("cyclevaegan", model=model, device=cuda)
     cpu = create_task("cyclevaegan", model=model, device="cpu")
@@ -532,7 +661,9 @@ def test_tiled_slice_on_cuda_launches_each_picked_site_and_matches_cpu(cuda):
         got = gpu.generate({"x": x}, eps=eps)
     launched = (in_act_cuda.launches - before[0],
                 in_act_tiled_cuda.launches - before[1])
-    assert launched == (0, sum(s[0] == "in_act_tiled" for s in sites)) != (0, 0)
+    assert launched == (sum(s[0] == "in_act" for s in sites),
+                        sum(s[0] == "in_act_tiled" for s in sites))
+    assert launched[1] > 0
     want = cpu.generate({"x": x}, eps=eps)
     torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-2)
 

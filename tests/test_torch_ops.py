@@ -413,6 +413,84 @@ def test_in_act_slab_rule_matches_jax():
     assert not tin.slab_fits((4, 512, 32, 32))
 
 
+# the slab rule's edges (1 MB of f32 a sample: 64x64x64 fits, x65 not), the
+# port's IN sites at batch 24, and planes JAX's tiled kernel's rows do not
+# divide (75x67 at 512 channels)
+SITE_SHAPES = [(2, 64, 16, 16), (1, 64, 64, 64), (1, 65, 64, 64),
+               (24, 64, 256, 256), (24, 256, 64, 64), (2, 512, 75, 67)]
+
+
+@pytest.mark.parametrize("shape", SITE_SHAPES)
+@pytest.mark.parametrize("mode", tin.MODES)
+def test_site_kernel_takes_k1_at_every_size_on_cuda(shape, mode):
+    """The dispatch rule: on the CPU and the meta device JAX's (the slab
+    rule under "auto", the tile rule under "tiled", nothing under "plain");
+    on a CUDA device K1 wherever K2 does not run, whatever the slab's size
+    and the mode."""
+    jax_rule = ("in_act_tiled" if mode == "tiled" and tin.tiles_fit(shape)
+                else "in_act" if mode == "auto" and tin.slab_fits(shape)
+                else None)
+    assert tin.site_kernel(shape, "cpu", mode) == jax_rule
+    assert tin.site_kernel(shape, torch.device("meta"), mode) == jax_rule
+    on_card = "in_act_tiled" if jax_rule == "in_act_tiled" else "in_act"
+    assert tin.site_kernel(shape, "cuda", mode) == on_card
+    assert tin.site_kernel(shape, torch.device("cuda", 1), mode) == on_card
+
+
+def test_site_kernel_at_the_slab_rules_edge():
+    assert tin.site_kernel((1, 64, 64, 64), "cpu", "auto") == "in_act"
+    assert tin.site_kernel((1, 65, 64, 64), "cpu", "auto") is None
+    assert tin.site_kernel((1, 65, 64, 64), "cuda", "auto") == "in_act"
+    assert tin.site_kernel((2, 512, 75, 67), "cpu", "tiled") is None
+    assert tin.site_kernel((2, 512, 75, 67), "cuda", "tiled") == "in_act"
+
+
+def test_spatial_sites_do_not_take_the_site_rule(monkeypatch):
+    """Under spatial parallelism every site is the split path, chosen by
+    the global shape under JAX's rule: the in-process rule is not asked."""
+    from vae_cyclegan_tpu_torch.parallel import spatial
+
+    def refuse(*a):
+        raise AssertionError("site_kernel asked under a spatial scope")
+
+    monkeypatch.setattr(tin, "site_kernel", refuse)
+    x = torch.from_numpy(np.random.RandomState(5).randn(2, 64, 16, 16)
+                         .astype(np.float32))
+    with spatial.spatial_scope(spatial.single()), \
+            kernels.record_sites() as sites:
+        y = tin.instance_norm_act(x, act="relu", order="act_norm")
+    assert [s[0] for s in sites] == ["in_stats"]
+    torch.testing.assert_close(y, tin.tiled_reference(x, "relu", "act_norm"),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("order", tin.ORDERS)
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "tanh"])
+def test_big_slab_on_the_kernel_route_is_the_plain_sites_function(
+        monkeypatch, act, order):
+    """A slab over 1 MB, as the card routes it (K1's Function: the forward
+    fused_reference, the backward from x alone) and as the CPU does (the
+    plain Function: the same forward, the backward from the saved mean and
+    rsqrt): y bit for bit, dx the same in f32 within summation order."""
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(1, 80, 64, 64).astype(np.float32) + 0.3)
+    g = torch.from_numpy(rng.randn(1, 80, 64, 64).astype(np.float32))
+    assert not tin.slab_fits(x.shape)
+
+    def run():
+        xa = x.clone().requires_grad_()
+        y = tin.instance_norm_act(xa, act=act, order=order)
+        return (y, *torch.autograd.grad(y, xa, g))
+
+    y_plain, dx_plain = run()
+    rule = tin.site_kernel
+    monkeypatch.setattr(tin, "site_kernel",
+                        lambda shape, device, mode: rule(shape, "cuda", mode))
+    y_card, dx_card = run()
+    assert torch.equal(y_card, y_plain)
+    torch.testing.assert_close(dx_card, dx_plain, rtol=1e-5, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # the kernel loader
 # ---------------------------------------------------------------------------

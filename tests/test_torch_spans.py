@@ -263,6 +263,31 @@ def test_counts_go_to_the_next_unit():
         {}, {"loader_batches.processes": 3, "loader_batches.threads": 1}, {}]
 
 
+def test_instance_norm_counts_each_sites_path():
+    """While spans are on, every in-process IN+act site counts its path,
+    ``instance_norm.kernel`` (K1 or K2) or ``instance_norm.plain``, into
+    the next unit; nothing while no profiler records."""
+    from vae_cyclegan_tpu_torch.ops.instance_norm import instance_norm_act
+
+    small = torch.ones(1, 64, 16, 16)      # a 64 KB slab: K1 by JAX's rule
+    big = torch.ones(1, 80, 64, 64)        # over 1 MB: plain on the CPU
+
+    def sites():
+        instance_norm_act(small, act="relu", order="act_norm")
+        instance_norm_act(big, act="relu", order="act_norm")
+        instance_norm_act(big, act="relu", order="act_norm", mode="tiled")
+        instance_norm_act(big, act="relu", order="act_norm", mode="plain")
+
+    sites()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with spans.unit("vct.step"):
+            sites()
+        with spans.unit("vct.step"):
+            pass
+    assert [u["counts"] for u in spans.units()] == [
+        {}, {"instance_norm.kernel": 2, "instance_norm.plain": 2}]
+
+
 def test_train_profile_dir_trace_has_the_ranges(tmp_path):
     """``train.py --profile_dir``'s trace of the first epoch holds the step's
     ranges and, recorded on every thread, the copy thread's and the

@@ -58,9 +58,11 @@ REFERENCE_CPU_IMAGES_PER_SEC = 0.04589  # cyclevaegan, measured (BASELINE.md)
 ROOT = Path(__file__).resolve().parents[1]
 #: bench.py's switches that the port does not have
 UNPORTED = ("BENCH_NO_PALLAS",)
-#: kernel launches of one unpaired cyclevaegan train_step at 256x256, base
-#: 64, bf16, "auto" IN (tests/test_torch_bench.py holds them to the step's
-#: kernel sites): K1, K3 reflect, K3 zero_same, K4
+#: kernel sites of one unpaired cyclevaegan train_step at 256x256, base
+#: 64, bf16, "auto" IN, by JAX's rules (tests/test_torch_bench.py holds them
+#: to the step's kernel sites on the meta device): K1, K3 reflect, K3
+#: zero_same, K4. On the card every one of the step's 102 IN sites takes K1
+#: (ops/instance_norm.py::site_kernel), so the bench there counts 102 K1
 UNPAIRED_STEP_LAUNCHES = {"in_act": 46, "starved_conv": 12,
                           "starved_conv_zero_same": 10, "starved_conv_dw": 12}
 

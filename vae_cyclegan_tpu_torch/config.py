@@ -47,8 +47,11 @@ class ModelConfig:
       dtype: compute dtype of the convs. Parameters stay float32;
         normalization statistics are always computed in float32.
       instance_norm: "auto" (the one-pass kernel where a sample's slab is at
-        most 1 MB, the plain version above) or "tiled" (the two-pass kernel
-        at every InstanceNorm site but the Decoder's channel-major U4).
+        most 1 MB, the plain version above; on a CUDA device the one-pass
+        kernel at every site) or "tiled" (the two-pass kernel at every
+        InstanceNorm site but the Decoder's channel-major U4, which takes
+        the one-pass kernel on a CUDA device and the plain version
+        elsewhere).
       remat: recompute every generator pass of a training step in its
         backward instead of keeping its activations (JAX's ``remat``, the
         same passes): less device memory, one more generator forward per

@@ -1,6 +1,7 @@
 // The shared core of the two InstanceNorm + activation kernels (in_act.cu,
-// in_act_tiled.cu), whose plan and pieces K2's split pair (in_split.cu) takes
-// too: per (n, c) plane of an NCHW tensor, in f32, the statistics
+// in_act_tiled.cu), whose plan and pieces K2's split pair (in_split.cu) and
+// K1's backward (in_act_bwd.cu, which holds x and the cotangent: its plan
+// counts the bytes of both) take too: per (n, c) plane of an NCHW tensor, in f32, the statistics
 // of h (h = act(x) for act_norm, else x), then y = (h - mean) * rsqrt(var +
 // eps), the activation after the norm for norm_act, and one rounding to the
 // input type at the end. Var picks the variance: Centered (mean first, then
@@ -103,11 +104,15 @@ inline int elems_for(long long need, int lo) {
   return e;
 }
 
-inline PlanePlan plan_plane(long long hw, int elem_bytes, bool vector_ok) {
+// `tensors`: the planes of this size a thread holds its part of (1, or 2 for
+// the backward's x and cotangent); the regimes' thresholds are in bytes of
+// all of them.
+inline PlanePlan plan_plane(long long hw, int elem_bytes, bool vector_ok,
+                            int tensors = 1) {
   PlanePlan p;
   const int lo = 16 / elem_bytes;  // the smallest E: one 16-byte vector
   p.vec = vector_ok ? lo : 1;
-  const long long bytes = hw * elem_bytes;
+  const long long bytes = hw * elem_bytes * tensors;
   if (bytes <= kWarpPlaneBytes) {
     p.regime = kRegimeWarp;
     p.elems = elems_for(ceil_div(hw, 32), lo);

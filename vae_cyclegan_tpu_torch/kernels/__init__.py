@@ -11,7 +11,8 @@ when this module is imported: the CPU tests import every module, and the CPU
 has no ``nvcc``.
 
 The wrappers that launch the kernels live next to their plain PyTorch
-versions: ``ops.instance_norm.in_act_cuda`` and ``in_act_tiled_cuda``, K2's split
+versions: ``ops.instance_norm.in_act_cuda`` and ``in_act_tiled_cuda``, K1's
+backward ``in_act_bwd_cuda``, K2's split
 for spatial parallelism ``in_stats_cuda`` and ``in_apply_cuda``, and
 ``ops.starved_conv.reflect_conv_cuda``, ``zero_conv_cuda`` and ``dw_cuda``,
 and for the conv prototypes of ``experiments/``
@@ -20,8 +21,9 @@ and for the conv prototypes of ``experiments/``
 ``experiments.lowcin_conv3.lowcin_conv_nhwc_cuda`` and
 ``experiments.dw_dot_probe.dot_probe_cuda``.
 
-The model path reaches K1-K4 through custom operators, ``vct::in_act``,
-``vct::in_act_tiled`` (and its split, ``vct::in_stats`` and
+The model path reaches K1-K4 through custom operators, ``vct::in_act``
+(and its backward, ``vct::in_act_bwd``), ``vct::in_act_tiled`` (and its
+split, ``vct::in_stats`` and
 ``vct::in_apply``), ``vct::starved_conv`` and ``vct::starved_dw``
 (``kernels.ops``): their dispatch sends a CUDA tensor to the wrapper and a
 CPU tensor to the plain version, and ``torch.export`` records each call as
@@ -68,6 +70,12 @@ _SIGNATURES = {
                           ctypes.c_float, _P]),
     # (hw, dtype, vector_ok, int[4] out) -> 0: the IN kernels' plane plan
     "vct_in_plane_plan": (_I, [ctypes.c_longlong, _I, _I, _P]),
+    # (x, g, dx, planes, hw, dtype, act, act_norm, eps, stream), K1's
+    # backward
+    "vct_in_act_bwd": (_I, [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                            _I, _I, _I, ctypes.c_float, _P]),
+    # (hw, dtype, vector_ok, int[4] out) -> 0: the backward's plane plan
+    "vct_in_act_bwd_plan": (_I, [ctypes.c_longlong, _I, _I, _P]),
     # (x, w, y, n, cin, cout, h, w, k, mode, dtype, stream)
     "vct_starved_conv": (_I, [_P, _P, _P] + [_I] * 8 + [_P]),
     # (n, cin, cout, h, w, k) -> floats of scratch, or -1

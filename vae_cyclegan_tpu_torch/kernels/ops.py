@@ -6,6 +6,9 @@ namespace, so that ``torch.export`` records it as one node of the graph
 program that runs on the card launches the hand kernel:
 
   ``vct::in_act(x, act, order, eps)``        K1, ``csrc/in_act.cu``
+  ``vct::in_act_bwd(x, g, act, order, eps)`` dx of K1's op (and K2's) from
+                                             x and the cotangent,
+                                             ``csrc/in_act_bwd.cu``
   ``vct::in_act_tiled(x, act, order, eps)``  K2, ``csrc/in_act_tiled.cu``
   ``vct::in_stats(x, act, order)``           K2's statistics pass and
   ``vct::in_apply(x, stats, count, act,``    its apply pass (y and each
@@ -19,21 +22,23 @@ program that runs on the card launches the hand kernel:
 
 The operator's dispatch picks the implementation by the device of its
 tensors: on a CUDA tensor the kernel's wrapper (``ops.instance_norm.
-in_act_cuda``, ``in_act_tiled_cuda``, ``in_stats_cuda``, ``in_apply_cuda``,
+in_act_cuda``, ``in_act_bwd_cuda``, ``in_act_tiled_cuda``, ``in_stats_cuda``,
+``in_apply_cuda``,
 ``ops.starved_conv.reflect_conv_cuda``
 / ``zero_conv_cuda``, ``dw_cuda``), which launches the kernel or raises and
 counts its launches; on a CPU tensor the kernel's plain version
-(``fused_reference``, ``tiled_reference``, ``in_stats_reference``,
+(``fused_reference``, ``fused_backward``, ``tiled_reference``,
+``in_stats_reference``,
 ``in_apply_reference``, ``reflect_conv`` /
 ``zero_conv``, ``dw_reference``); on the ``meta`` device the fake. The
 dispatch rules that decide whether a site takes a kernel at all
-(``slab_fits``, ``tiles_fit``, ``supported``, ``fwd_wins``) and
+(``site_kernel``, ``supported``, ``fwd_wins``) and
 ``kernels.note_site`` stay in Python, ahead of the operator, in the
 modules that own them.
 
 The operators are not differentiable themselves: the autograd Functions of
 ``ops.instance_norm`` and ``ops.starved_conv`` call them in their forward
-and backward. Importing this module registers the six operators (the ops
+and backward. Importing this module registers the seven operators (the ops
 modules import it); load an exported program only after that.
 """
 
@@ -69,6 +74,27 @@ def _in_act_cuda(x: Tensor, act: str, order: str, eps: float) -> Tensor:
 
 @in_act.register_fake
 def _in_act_fake(x: Tensor, act: str, order: str, eps: float) -> Tensor:
+    return _empty_like(x)
+
+
+@torch.library.custom_op(f"{_LIB}::in_act_bwd", mutates_args=(),
+                         device_types="cpu")
+def in_act_bwd(x: Tensor, g: Tensor, act: str, order: str,
+               eps: float) -> Tensor:
+    from vae_cyclegan_tpu_torch.ops.instance_norm import fused_backward
+    return fused_backward(x, g, act, order, eps)
+
+
+@in_act_bwd.register_kernel("cuda")
+def _in_act_bwd_cuda(x: Tensor, g: Tensor, act: str, order: str,
+                     eps: float) -> Tensor:
+    from vae_cyclegan_tpu_torch.ops.instance_norm import in_act_bwd_cuda
+    return in_act_bwd_cuda(x.contiguous(), g.contiguous(), act, order, eps)
+
+
+@in_act_bwd.register_fake
+def _in_act_bwd_fake(x: Tensor, g: Tensor, act: str, order: str,
+                     eps: float) -> Tensor:
     return _empty_like(x)
 
 

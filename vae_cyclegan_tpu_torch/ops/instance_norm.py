@@ -6,13 +6,15 @@ eps=1e-5, no affine parameters, statistics in float32. Two orders:
   * ``norm_act``: InstanceNorm then activation (CaSb)
   * ``act_norm``: activation then InstanceNorm (D/R/U blocks)
 
-Dispatch follows the JAX package's rule (``vae_cyclegan_tpu/ops/
-instance_norm.py::instance_norm_act``), by ``mode``, the counterpart of its
-``use_pallas``:
+Dispatch is one rule, ``site_kernel(shape, device, mode)``, by ``mode``, the
+counterpart of the JAX package's ``use_pallas``
+(``vae_cyclegan_tpu/ops/instance_norm.py::instance_norm_act``), and by the
+tensor's device:
 
-  * ``"auto"`` (JAX's None): a slab whose per-sample f32 size H*W*C*4 is at
-    most 1 MB takes the one-pass kernel (``csrc/in_act.cu``, the port of
-    ``_pallas_in_act``); larger slabs take the plain version, as JAX sends
+  * ``"auto"`` (JAX's None): on the CPU and the ``meta`` device JAX's rule: a
+    slab whose per-sample f32 size H*W*C*4 is at most 1 MB takes the one-pass
+    kernel (``csrc/in_act.cu``, the port of ``_pallas_in_act``; its plain
+    version on those devices), larger slabs the plain version, as JAX sends
     them to XLA. In a generator forward the kernel runs at the five
     16x16x1024 sites, in a discriminator forward at the 32x32x256 and
     16x16x512 sites.
@@ -26,28 +28,44 @@ instance_norm.py::instance_norm_act``), by ``mode``, the counterpart of its
     under "tiled" when JAX hands that site over channel-major (it then
     normalizes it on XLA).
 
+On a CUDA tensor every site that does not take the tiled kernel takes K1,
+whatever its size and mode (big slabs, "plain", the tiled fallback): K1
+computes ``fused_reference``, the same centered variance and roundings as the
+plain forward, so only where the site runs changes. The 1 MB rule is the
+TPU's VMEM budget for a sample's slab; K1 holds one (n, c) plane at a time
+on chip, in registers of a warp, a CTA or a cluster of up to 8 CTAs (256 KB,
+bf16 256x256), and loops over device memory beyond, so no slab is too big
+for it. The plain f32 path moves ~190 bytes an element forward and
+backward, in ~30 launches a site; K1 and its backward move 4 and 6 in bf16,
+in one launch each.
+
 Both kernels share ``csrc/in_plane.cuh``: each plane is read from device
 memory once, held on chip (a warp, a CTA or a thread block cluster per
 plane, by its size) and written once, in one launch; they differ only in the
 variance formula.
 
-The kernels are reached through the custom operators ``vct::in_act`` (K1)
-and ``vct::in_act_tiled`` (K2) of ``kernels.ops``, whose dispatch picks the
-implementation by device: a CUDA tensor that the rule selects launches the
-kernel or raises; CPU tensors take the plain version, ``meta`` tensors the
-operator's fake. A call that needs no gradient calls the operator directly
-(so ``torch.export`` of an inference path records it as one node).
+The kernels are reached through the custom operators ``vct::in_act`` (K1),
+``vct::in_act_bwd`` (its backward) and ``vct::in_act_tiled`` (K2) of
+``kernels.ops``, whose dispatch picks the implementation by device: a CUDA
+tensor launches the kernel or raises; CPU tensors take the plain version,
+``meta`` tensors the operator's fake. A call that needs no gradient calls the
+operator directly (so ``torch.export`` of an inference path records it as
+one node).
 
-Every path is a ``torch.autograd.Function`` whose backward is plain torch in
-f32, returning x's dtype, as the JAX package's custom VJPs are jnp:
-``_InActFused`` (K1's sites, ``_fused_tpu``) and ``_InActTiled`` (K2's,
-``_fused_tpu_tiled``) save x and recompute centered statistics
-(``_fused_tpu_bwd``), so K2's forward and backward use different variance
-formulas, as in JAX; ``_InActPlain`` (the big slabs, ``_fused_xla``) saves
-(x, mean, rsqrt) and takes the analytic form (``_fused_xla_bwd``). The
-plain forwards keep the centered variance of the serving path and of the
-JAX package's CPU path; on the TPU, JAX's training forward of the big slabs
-uses the single-pass E[x^2] - mean^2 (``_stats``).
+Every path is a ``torch.autograd.Function`` whose backward is f32, returning
+x's dtype, as the JAX package's custom VJPs are jnp: ``_InActFused`` (K1's
+sites, ``_fused_tpu``) and ``_InActTiled`` (K2's, ``_fused_tpu_tiled``) save
+x and recompute centered statistics (``_fused_tpu_bwd``), so K2's forward and
+backward use different variance formulas, as in JAX; on a CUDA tensor that
+backward is the hand kernel ``csrc/in_act_bwd.cu`` (``in_act_bwd_cuda``), on
+the CPU ``fused_backward``. ``_InActPlain`` (the big slabs off the card,
+``_fused_xla``) saves (x, mean, rsqrt) and takes the analytic form
+(``_fused_xla_bwd``). The plain forwards keep the centered variance of the
+serving path and of the JAX package's CPU path; on the TPU, JAX's training
+forward of the big slabs uses the single-pass E[x^2] - mean^2 (``_stats``).
+
+While spans are on (``utils.spans``), every in-process site counts its path:
+``instance_norm.kernel`` (K1 or K2) or ``instance_norm.plain``.
 
 Under spatial parallelism (``parallel.spatial``: a rank holds some rows of
 each plane) every site is ``_InActSpatial``: per plane the sums (s, ss) of
@@ -312,6 +330,33 @@ def in_act_tiled_cuda(x: torch.Tensor, act: str, order: str,
 in_act_tiled_cuda.launches = 0
 
 
+def in_act_bwd_cuda(x: torch.Tensor, g: torch.Tensor, act: str, order: str,
+                    eps: float = EPS) -> torch.Tensor:
+    """Launch K1's backward (``csrc/in_act_bwd.cu``): dx of the IN+act op
+    from x and the cotangent g of its output, ``fused_backward``'s formula,
+    on contiguous NCHW CUDA tensors of one shape and dtype (float32 or
+    bfloat16). Not differentiable itself: raises under autograd."""
+    _check_kernel_input("in_act_bwd", x, act, order)
+    if (g.shape != x.shape or g.dtype != x.dtype
+            or g.device != x.device or not g.is_contiguous()):
+        raise ValueError(
+            f"in_act_bwd kernel: g must be a contiguous {x.dtype} "
+            f"{tuple(x.shape)} tensor on {x.device}, got {g.dtype} "
+            f"{tuple(g.shape)} strides {g.stride()} on {g.device}")
+    if torch.is_grad_enabled() and g.requires_grad:
+        raise RuntimeError("in_act_bwd kernel is not differentiable itself")
+    n, c, h, w = x.shape
+    dx = torch.empty_like(x)
+    _launch("vct_in_act_bwd", x, x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            n * c, h * w, DTYPE_CODES[x.dtype], _ACT_CODES[act],
+            int(order == "act_norm"), float(eps))
+    in_act_bwd_cuda.launches += 1
+    return dx
+
+
+in_act_bwd_cuda.launches = 0
+
+
 def in_stats_reference(x: torch.Tensor, act: str, order: str) -> torch.Tensor:
     """Plain version of the statistics pass (``_stats_kernel``): per (n, c)
     plane of an NCHW tensor, in f32, (s, ss) = the sums of h and h^2, h =
@@ -403,20 +448,47 @@ in_apply_cuda.launches = 0
 PLANE_REGIMES = ("warp", "block", "cluster", "stream")
 
 
-def plane_plan(hw: int, dtype: torch.dtype, vector_ok: bool = True) -> dict:
-    """How both IN kernels take planes of `hw` elements of `dtype`
+def plane_plan(hw: int, dtype: torch.dtype, vector_ok: bool = True,
+               backward: bool = False) -> dict:
+    """How both IN kernels (or, with `backward`, K1's backward, which holds
+    x and the cotangent) take planes of `hw` elements of `dtype`
     (``csrc/in_plane.cuh``): the regime (a warp, a CTA or a cluster of CTAs
     holding the plane on chip, or a cluster looping over it), the elements
-    per load (16-byte vectors when `vector_ok`: x and y 16-byte aligned and
-    hw a multiple of the vector), the elements a thread holds and the CTAs
-    per plane. Asks the built library, so it needs the card's toolchain."""
+    per load (16-byte vectors when `vector_ok`: every operand 16-byte
+    aligned and hw a multiple of the vector), the elements of each plane a
+    thread holds and the CTAs per plane. Asks the built library, so it
+    needs the card's toolchain."""
     out = (ctypes.c_int * 4)()
-    rc = kernels.load().vct_in_plane_plan(hw, DTYPE_CODES[dtype],
-                                          int(vector_ok), out)
+    lib = kernels.load()
+    entry = lib.vct_in_act_bwd_plan if backward else lib.vct_in_plane_plan
+    rc = entry(hw, DTYPE_CODES[dtype], int(vector_ok), out)
     if rc != 0:
         raise ValueError(f"no plane plan for hw={hw}, {dtype}")
     return {"regime": PLANE_REGIMES[out[0]], "vec": out[1], "elems": out[2],
             "cluster": out[3]}
+
+
+def site_kernel(shape, device, mode: str):
+    """The kernel an in-process site of `shape` on `device` takes under
+    `mode` (module docstring): ``"in_act_tiled"`` (K2), ``"in_act"`` (K1),
+    or None for the plain version. A CUDA device takes K1 wherever K2 does
+    not run; the CPU and ``meta`` keep JAX's rules (``slab_fits``,
+    ``tiles_fit``)."""
+    if mode == "tiled" and tiles_fit(shape):
+        return "in_act_tiled"
+    if torch.device(device).type == "cuda" or (mode == "auto"
+                                               and slab_fits(shape)):
+        return "in_act"
+    return None
+
+
+def _backward(x: torch.Tensor, g: torch.Tensor, act: str, order: str,
+              eps: float) -> torch.Tensor:
+    """dx of a site that saved x alone: K1's backward kernel on a CUDA
+    tensor, ``fused_backward`` elsewhere."""
+    if x.is_cuda:
+        return spans.op(kernel_ops.in_act_bwd, x, g, act, order, eps)
+    return fused_backward(x, g, act, order, eps)
 
 
 def _tiled_forward(x: torch.Tensor, act: str, order: str,
@@ -429,7 +501,7 @@ def _tiled_forward(x: torch.Tensor, act: str, order: str,
 
 
 class _InActFused(torch.autograd.Function):
-    """The kernel sites: K1's operator forward, saves x."""
+    """The kernel sites: K1's operator forward, saves x; ``_backward``."""
 
     @staticmethod
     def forward(ctx, x, act, order, eps):
@@ -440,11 +512,12 @@ class _InActFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return fused_backward(x, g, *ctx.cfg), None, None, None
+        return _backward(x, g, *ctx.cfg), None, None, None
 
 
 class _InActTiled(torch.autograd.Function):
-    """The tiled configuration's sites: ``_tiled_forward``, saves x."""
+    """The tiled configuration's sites: ``_tiled_forward``, saves x;
+    ``_backward``."""
 
     @staticmethod
     def forward(ctx, x, act, order, eps):
@@ -455,11 +528,12 @@ class _InActTiled(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return fused_backward(x, g, *ctx.cfg), None, None, None
+        return _backward(x, g, *ctx.cfg), None, None, None
 
 
 class _InActPlain(torch.autograd.Function):
-    """The big slabs: plain forward, saves (x, mean, rsqrt)."""
+    """The big slabs off the card: plain forward, saves (x, mean,
+    rsqrt)."""
 
     @staticmethod
     def forward(ctx, x, act, order, eps):
@@ -553,15 +627,16 @@ def instance_norm_act(x: torch.Tensor, *, act: str = "relu",
         if not grad:
             return _spatial_forward(x, act, order, eps, kernel, lay)[0]
         return _InActSpatial.apply(x, act, order, eps, kernel, lay)
-    if mode == "tiled":
-        if tiles_fit(x.shape):
-            kernels.note_site("in_act_tiled", x.shape, x.dtype, act=act,
-                              order=order)
+    kernel = site_kernel(x.shape, x.device, mode)
+    spans.count("instance_norm.plain" if kernel is None
+                else "instance_norm.kernel")
+    if kernel is not None:
+        kernels.note_site(kernel, x.shape, x.dtype, act=act, order=order)
+    if kernel == "in_act_tiled" or (mode == "tiled" and kernel is None):
         if not grad:
             return _tiled_forward(x, act, order, eps)
         return _InActTiled.apply(x, act, order, eps)
-    if mode == "auto" and slab_fits(x.shape):
-        kernels.note_site("in_act", x.shape, x.dtype, act=act, order=order)
+    if kernel == "in_act":
         if not grad:
             return spans.op(kernel_ops.in_act, x, act, order, eps)
         return _InActFused.apply(x, act, order, eps)
